@@ -9,11 +9,16 @@ no CUDA device or any phase fails. Phases:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
 1. build: the hand-written CUDA kernels, from ``src/repro_torch/kernels/csrc``.
-2. kernels: each kernel against its plain PyTorch version at llama3-8b head
-   shapes (Hq 32, Hkv 8, D 128, page 16), f32 within 1e-4 and bf16 within
-   2e-2; its time (CUDA events), the plain version's time, the least time
-   the card could take (bound) and, for flash, the time of one PyTorch SDPA
-   call as a yardstick.
+2. kernels: each attention kernel against its plain PyTorch version at
+   llama3-8b head shapes (Hq 32, Hkv 8, D 128, page 16), f32 within 1e-4
+   and bf16 within 2e-2; ssd_scan against its plain version at xLSTM width
+   (T 512, H 4, dk 512, dv 513, bf16 q/k), at a ragged T 509 and at
+   Mamba's widths (H 128, dk 16, dv 64), within 1e-4 * max(1, max|plain|)
+   for y and the final state, and the state continuation (kernel over T,
+   one plain decode step, against the kernel over T + 1); each kernel's
+   time (CUDA events), the plain version's time, the least time the card
+   could take (bound) and, for flash, the time of one PyTorch SDPA call as
+   a yardstick.
 3. serve: llama3-8b at full width and depth (32 layers, bf16, seeded random
    weights) through ``ServingEngine`` in mirage mode with a paged tenant:
    8 prompts of 512 tokens, 32 new tokens each, once with monolithic
@@ -23,7 +28,16 @@ no CUDA device or any phase fails. Phases:
    small KV pool (the controller remaps parameter memory into the pool and
    the donor's layers stream from pinned host memory) and with an ample
    pool; the generated tokens must be identical.
-5. the kernels line (JSON) and, last, the result line (JSON).
+5. xlstm serve: xlstm-1.3b at full width and depth (48 layers, bf16) as a
+   dense recurrent tenant, 8 prompts of 512 tokens, 32 new tokens each,
+   monolithic prefill (the ssd_scan kernel in its 42 mLSTM layers); each
+   prompt's first-token logits against a prefill of all but its last token
+   followed by one decode step; a few decode steps timed, then profiled
+   (launches, device time and the device's idle share).
+6. xlstm remap: two full-depth xlstm-1.3b tenants, a small KV budget (the
+   controller remaps repeats of one tenant, which then streams them from
+   pinned host memory) and an ample one; identical tokens.
+7. the kernels line (JSON) and, last, the result line (JSON).
 """
 from __future__ import annotations
 
@@ -38,14 +52,19 @@ import warnings
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models.blocks import ssd_decode_step  # noqa: E402
 from repro_torch.models import attention_ops as plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
@@ -54,6 +73,7 @@ from repro_torch.serving.traces import tiny_trace  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                  # f32 outside the tensor cores
 HQ, HKV, D, PAGE = 32, 8, 128, 16  # llama3-8b attention, engine page
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Phase 3 compares the first-token logits of the monolithic (flash) and the
@@ -74,11 +94,22 @@ SOURCES = {
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:96"),
+    "ssd_scan": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:76"),
 }
+# ssd_scan against its plain version: y and the final state within
+# SSD_RTOL * max(1, max|plain|). Both run f32 arithmetic on the same
+# (bf16-rounded) inputs; they differ in the chunk (64 tokens in the kernel,
+# the largest divisor of T up to 128 in the plain version) and in summation
+# order, ~1e-6 relative per product over sums of up to dk = 512 terms.
+SSD_RTOL = 1e-4
 
 
 # the serve phase's requests: prompt tokens and new tokens each
 PROMPT, NEW = 512, 32
+# the xlstm remap phase's requests and KV budgets (tight, ample)
+REMAP_PROMPT, REMAP_NEW, REMAP_PAGES = 96, 16, (16, 256)
 # where phases 3 and 4 run: always the card here; a CPU rehearsal of the
 # script's control flow at a tiny size sets "cpu"
 DEVICE = "cuda"
@@ -121,10 +152,12 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, f32_flops: float = 0.0):
     """(ms, "bytes" | "operations"): the larger of bytes over the memory
-    rate and operations over the bf16 peak."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    rate and operations over their peak: ``flops`` on bf16 operands at the
+    bf16 tensor-core rate, ``f32_flops`` at the f32 rate."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / BF16_FLOPS + f32_flops / F32_FLOPS
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -339,8 +372,109 @@ def phase_kernels():
     check_decode(gen, rows)
     check_prefill(gen, rows)
     check_flash(gen, rows)
+    check_ssd(gen, rows)
     timing = time_kernels(gen)
+    timing["ssd_scan"] = time_ssd(gen)
     return {name: (max(errs), timing[name]) for name, errs in rows.items()}
+
+
+# ------------------------------------------------------- phase 2: ssd_scan
+# (b, T, H, dk, dv, what): the xLSTM prefill, a ragged prompt, Mamba widths
+SSD_CASES = ((1, 512, 4, 512, 513, "xlstm"), (1, 509, 4, 512, 513, "ragged"),
+             (1, 512, 128, 16, 64, "mamba"))
+
+
+def ssd_inputs(gen, b, t, h, dk, dv, mlstm: bool):
+    """Inputs shaped like the model's: bf16 q/k scaled as mLSTM scales them,
+    f32 v (with mLSTM's gated ones column), f32 log decay <= 0."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q = (randn(b, t, h, dk) * dk ** -0.5).to(torch.bfloat16)
+    k = (randn(b, t, h, dk) * dk ** -0.25).to(torch.bfloat16)
+    v = randn(b, t, h, dv)
+    if mlstm:
+        gate = torch.sigmoid(randn(b, t, h))
+        v[..., -1] = 1.0
+        v = v * gate[..., None]
+        log_a = F.logsigmoid(randn(b, t, h) + 3.0)
+    else:
+        log_a = -F.softplus(randn(b, t, h))
+    return q, k, v.contiguous(), log_a.contiguous()
+
+
+def _rel(out, ref) -> float:
+    return _err(out, ref) / max(1.0, ref.abs().max().item())
+
+
+def check_ssd(gen, rows):
+    for b, t, h, dk, dv, what in SSD_CASES:
+        q, k, v, la = ssd_inputs(gen, b, t, h, dk, dv, what != "mamba")
+        y, f = ssd_ops.ssd_scan(q, k, v, la)
+        ry, rf = ssd_scan_ref(q, k, v, la)
+        torch.cuda.synchronize()
+        ey, ef = _rel(y, ry), _rel(f, rf)
+        rows["ssd_scan"] += [_err(y, ry), _err(f, rf)]
+        log(f"[kernels] ssd_scan {what} B={b} T={t} H={h} dk={dk} dv={dv}: "
+            f"y max_err {_err(y, ry):.3g} (rel {ey:.3g}), final state "
+            f"max_err {_err(f, rf):.3g} (rel {ef:.3g})")
+        if not (ey <= SSD_RTOL and ef <= SSD_RTOL):
+            fail(f"ssd_scan {what}: {ey}, {ef} > {SSD_RTOL}")
+    # the state continues the recurrence: kernel over T, one decode step,
+    # against the kernel over T + 1
+    b, t, h, dk, dv, _ = SSD_CASES[0]
+    q, k, v, la = ssd_inputs(gen, b, t + 1, h, dk, dv, True)
+    y_all, f_all = ssd_ops.ssd_scan(q, k, v, la)
+    _, f_t = ssd_ops.ssd_scan(q[:, :t].contiguous(), k[:, :t].contiguous(),
+                              v[:, :t].contiguous(), la[:, :t].contiguous())
+    y_step, f_step = ssd_decode_step(q[:, t], k[:, t], v[:, t], la[:, t], f_t)
+    torch.cuda.synchronize()
+    ey, ef = _rel(y_step, y_all[:, t]), _rel(f_step, f_all)
+    log(f"[kernels] ssd_scan state continuation T={t}+1: y rel err {ey:.3g}, "
+        f"state rel err {ef:.3g}")
+    if not (ey <= SSD_RTOL and ef <= SSD_RTOL):
+        fail(f"ssd_scan state continuation: {ey}, {ef} > {SSD_RTOL}")
+
+
+def ssd_chunk_work(t, dk, dv, chunk):
+    """(bf16 flops, f32 flops) of one (batch, head) in the chunked form:
+    the scores q.k (bf16 operands) over the causal pairs of each chunk and,
+    at f32, those scores times v, the inter-chunk term q.S_prev of every
+    chunk after the first and the state update (2 dk dv flops a token
+    each)."""
+    pairs = sum(n * (n + 1) // 2 for n in
+                (min(chunk, t - c0) for c0 in range(0, t, chunk)))
+    return (pairs * 2 * dk,
+            pairs * 2 * dv + 2 * (t - min(chunk, t)) * dk * dv
+            + 2 * t * dk * dv)
+
+
+def ssd_work(b, t, h, dk, dv):
+    """(bytes, bf16 flops, f32 flops) the recurrence needs: each input read
+    and each output written once, and the operations of the chunk length
+    (1 to T; T is the quadratic form) that takes the least time at the
+    card's peak rates."""
+    nbytes = (2 * b * t * h * dk * 2 + b * t * h * dv * 4 + b * t * h * 4
+              + b * t * h * dv * 4 + b * h * dk * dv * 4)
+    bf16, f32 = min((ssd_chunk_work(t, dk, dv, c) for c in range(1, t + 1)),
+                    key=lambda w: w[0] / BF16_FLOPS + w[1] / F32_FLOPS)
+    return nbytes, b * h * bf16, b * h * f32
+
+
+def time_ssd(gen):
+    """The kernel at the serve phase's shape (one 512-token prompt, one
+    mLSTM layer) and, for the record, at Mamba's widths."""
+    out = None
+    for b, t, h, dk, dv, what in SSD_CASES[::2]:
+        q, k, v, la = ssd_inputs(gen, b, t, h, dk, dv, what != "mamba")
+        ms = time_ms(lambda: ssd_ops.ssd_scan(q, k, v, la), 50)
+        plain_ms = time_ms(lambda: ssd_scan_ref(q, k, v, la), 10)
+        bms, by = bound(*ssd_work(b, t, h, dk, dv))
+        shape = f"B={b} T={t} H={h} dk={dk} dv={dv} bf16 q/k, f32 v"
+        log(f"[kernels] time ssd_scan ({what}, {shape}): {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library none")
+        if out is None:
+            out = (ms, plain_ms, bms, by, None, shape)
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -498,6 +632,187 @@ def phase_remap(cfg=dataclasses.replace(ARCHS["llama3-8b"], num_layers=2)):
         f"revert events; generated tokens identical to the ample-pool run")
 
 
+# ---------------------------------------------------------------- phase 5
+def _tokens(seq) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(seq, np.int64)).to(DEVICE)
+
+
+def decode_profile(model, params, state, max_context, steps: int = 3):
+    """Kernel launches and device idle share of a decode step on the
+    tenant's batch state: the step's wall time from ``steps`` plain
+    ``decode_step`` calls, its launches and device time from as many more
+    under the profiler (whose own cost per launch would inflate the wall
+    time)."""
+    tokens = torch.zeros(state["pos"].shape[0], dtype=torch.int32,
+                         device=DEVICE)
+    model.decode_step(params, state, tokens, max_context)      # warm
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model.decode_step(params, state, tokens, max_context)
+    _sync()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.decode_step(params, state, tokens, max_context)
+        _sync()
+        prof_wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in avg
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    launches = sum(e.count for e in avg if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return (launches / steps, wall / steps * 1e3, prof_wall / steps * 1e3,
+            dev_us / 1e3 / steps)
+
+
+def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
+    _reset_peak()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(3), DEVICE)
+    _sync()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    pattern = [ld.mixer for ld in model.impl.pattern]
+    n_mlstm = pattern.count("mlstm") * model.repeats
+    log(f"[xlstm] {cfg.name}: {cfg.num_layers} layers ({model.repeats} x "
+        f"{pattern}), d_model {cfg.d_model}, heads {cfg.num_heads} x "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{n_params / 1e9:.3f} B params initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    max_context = PROMPT + NEW + 2
+    eng = ServingEngine(
+        {cfg.name: TenantConfig(cfg, params, max_batch=8,
+                                max_context=max_context, paged=False)},
+        mode="mirage", base_kv_pages=512, page_size=PAGE, device=DEVICE,
+        keep_prefill_logits=True)
+    trace = tiny_trace([cfg.name], n_per_model=8, prompt_len=PROMPT,
+                       max_new=NEW, vocab=cfg.vocab_size, seed=0)
+    prompts = {r.rid: np.array(r.prompt) for r in trace}
+    kernels.reset_launch_counts()
+    t_pre, t_dec, dec_tokens = _drive(eng, trace)
+    counts = kernels.launch_counts()
+    kinds = [k for _, k, _ in eng.events]
+    n_prefills = kinds.count("prefill")
+    log(f"[xlstm] finished {len(eng.finished)} requests, "
+        f"{sum(len(r.generated) for r in eng.finished)} tokens in "
+        f"{eng.step_idx} steps; admit+prefill steps {t_pre:.3f} s, decode "
+        f"{dec_tokens} tokens in {t_dec:.3f} s = {dec_tokens / t_dec:.1f} "
+        f"tok/s; launches {counts} "
+        f"({counts['ssd_scan'] / max(n_prefills, 1):.0f} "
+        f"ssd_scan per prompt; {n_mlstm} mLSTM layers)")
+    if len(eng.finished) != 8 or any(len(r.generated) != NEW
+                                     for r in eng.finished):
+        fail(f"xlstm: not every request made {NEW} tokens")
+    if "preempt" in kinds or "remap" in kinds:
+        fail(f"xlstm: the ample budget preempted or remapped: {kinds}")
+    if DEVICE == "cuda" and counts["ssd_scan"] != 8 * n_mlstm:
+        fail(f"xlstm: ssd_scan launched {counts['ssd_scan']} times, "
+             f"expected {8 * n_mlstm}")
+    # the kernel's final state continues the recurrence: prefill of all but
+    # the last prompt token, then one decode step of it
+    worst, top = 0.0, 0.0
+    for rid, prompt in prompts.items():
+        a = eng.prefill_logits[rid]
+        if a.shape != (cfg.vocab_size,) or not torch.isfinite(a).all() \
+                or not a.abs().max() > 0:
+            fail(f"xlstm: prefill logits of {rid} are {tuple(a.shape)}, "
+                 f"max |logit| {a.abs().max().item()}")
+        _, st = model.prefill(params, {"tokens": _tokens(prompt[None, :-1])},
+                              max_context)
+        b, _ = model.decode_step(params, st, _tokens(prompt[-1:]),
+                                 max_context)
+        b = b[0].float().cpu()
+        worst = max(worst, ((a - b).abs().max() / a.abs().max()).item())
+        top = max(top, a.abs().max().item())
+    log(f"[xlstm] first-token logits, prefill of P tokens vs prefill of P-1 "
+        f"and one decode step: max|d|/max|logit| = {worst:.3g} (tolerance "
+        f"{LOGIT_RTOL}; max|logit| {top:.3g})")
+    if not worst <= LOGIT_RTOL:
+        fail(f"xlstm: prefill/decode logits differ by {worst} > {LOGIT_RTOL}")
+    if DEVICE == "cuda":
+        t = eng.tenants[cfg.name]
+        per_step, step_ms, prof_ms, dev_ms = decode_profile(
+            model, params, t.state, max_context)
+        log(f"[xlstm] decode step (batch 8): wall {step_ms:.3f} ms; under "
+            f"the profiler {prof_ms:.3f} ms, {per_step:.0f} kernel launches, "
+            f"device {dev_ms:.3f} ms; device idle share "
+            f"{1 - dev_ms / step_ms:.3f} of the unprofiled step")
+    log(f"[xlstm] peak memory {_peak() / 2**30:.2f} GiB")
+    del eng, params, model
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------- phase 6
+def phase_xlstm_remap(cfg=ARCHS["xlstm-1.3b"]):
+    _reset_peak()
+    model = build_model(cfg)
+    tp = {n: model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE) for n, seed in (("X", 4), ("Y", 5))}
+    unit = sum(x.numel() * x.element_size()
+               for x in tree_leaves(tp["X"]["blocks"])) // model.repeats
+    log(f"[xlstm-remap] two {cfg.name} tenants, {model.repeats} repeats of "
+        f"{unit} bytes; a remap donates whole repeats "
+        f"({unit // (PAGE * 1024)} nominal pages each); dense tenants have no "
+        f"pool to grow")
+    results = {}
+    for label, base in zip(("pressure", "ample"), REMAP_PAGES):
+        eng = ServingEngine(
+            {n: TenantConfig(cfg, p, max_batch=4,
+                             max_context=REMAP_PROMPT + REMAP_NEW + 2,
+                             paged=False) for n, p in tp.items()},
+            mode="mirage", base_kv_pages=base, page_size=PAGE, device=DEVICE)
+        eng.submit(tiny_trace(list(tp), n_per_model=3,
+                              prompt_len=REMAP_PROMPT, max_new=REMAP_NEW,
+                              vocab=cfg.vocab_size, seed=1))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        _sync()
+        counts = kernels.launch_counts()
+        eng.allocator.check_invariants()
+        ev = [(s, k, d) for s, k, d in eng.events
+              if k in ("remap", "revert", "preempt")]
+        gen = {r.rid: list(r.generated) for r in eng.finished}
+        log(f"[xlstm-remap] {label}: base_kv_pages={base} finished "
+            f"{len(eng.finished)} requests in {eng.step_idx} steps, "
+            f"{time.perf_counter() - t0:.2f} s; events {ev}; TransferStats "
+            f"{dataclasses.asdict(eng.xfer.stats)}; host->device fetch bytes "
+            f"{eng.xfer.host_fetch_bytes}; ssd_scan launches "
+            f"{counts['ssd_scan']}; peak memory {_peak() / 2**30:.2f} GiB")
+        results[label] = (eng, gen)
+        if len(eng.finished) != 6:
+            fail(f"xlstm-remap {label}: {len(eng.finished)} of 6 finished")
+        if DEVICE == "cuda" and counts["ssd_scan"] <= 0:
+            fail(f"xlstm-remap {label}: ssd_scan never launched")
+    p_eng, p_gen = results["pressure"]
+    kinds = [k for _, k, _ in p_eng.events]
+    st = p_eng.xfer.stats
+    if kinds.count("remap") < 1:
+        fail("xlstm-remap: the small budget never remapped")
+    if DEVICE == "cuda" and not (
+            p_eng.xfer.host_fetch_bytes > 0
+            and p_eng.xfer.host_fetch_bytes == st.stream_bytes):
+        fail(f"xlstm-remap: streamed {p_eng.xfer.host_fetch_bytes} bytes, "
+             f"TransferStats.stream_bytes {st.stream_bytes}")
+    if p_gen != results["ample"][1]:
+        fail(f"xlstm-remap: generated tokens differ:\n{p_gen}\n"
+             f"{results['ample'][1]}")
+    if _peak() > 80e9:
+        fail("xlstm-remap: peak memory above 80 GB")
+    log(f"[xlstm-remap] {kinds.count('remap')} remap and "
+        f"{kinds.count('revert')} revert events; the donor streamed "
+        f"{p_eng.xfer.host_fetch_bytes} bytes host->device (= stream_bytes); "
+        f"generated tokens identical to the ample-budget run")
+    del results, p_eng, tp, model
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     t0 = time.perf_counter()
@@ -506,6 +821,8 @@ def main() -> None:
     checked = phase_kernels()
     launches = phase_serve()
     phase_remap()
+    launches["ssd_scan"] = phase_xlstm()["ssd_scan"]
+    phase_xlstm_remap()
     rows = []
     for name, (err, (ms, pms, bms, by, lib, _shape)) in checked.items():
         src, replaces = SOURCES[name]

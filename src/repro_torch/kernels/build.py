@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``kernels/csrc``).
 
-All ``.cu`` sources compile in one ``nvcc`` call for ``sm_90a`` into a shared
+Each ``.cu`` source compiles for ``sm_90a`` in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into a shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, into ``build/repro_torch_kernels/`` at the repository root (a
 directory ``.gitignore`` lists); the library's name carries a hash of the
@@ -19,8 +20,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, sizes c_int
@@ -28,6 +29,7 @@ SIGNATURES = {
     "rt_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
     "rt_paged_prefill_attention": [_P] * 7 + [_I] * 9 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
+    "rt_ssd_scan": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -57,6 +59,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of any that fail."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}"
+                          f"\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
     global build_seconds
@@ -65,13 +82,19 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    objs = out.with_suffix(f".{os.getpid()}.objs")
+    objs.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    obj_of = {p: objs / f"{p.stem}.o" for p in srcs}
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_of[p]), str(p)]
+                  for p in srcs])
+        _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                   *(str(obj_of[p]) for p in srcs)]])
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

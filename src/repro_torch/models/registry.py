@@ -30,6 +30,38 @@ class Model:
     def repeats(self) -> int:
         return self.impl.repeats
 
+    # ---------------------------------------------------------------- serving
+    def prefill(self, params, batch, max_context: int):
+        return self.impl.prefill(params, batch["tokens"], max_context)
+
+    def decode_step(self, params, state, tokens, max_context: int,
+                    fetch=None):
+        return self.impl.decode_step(params, state, tokens, max_context,
+                                     fetch=fetch)
+
+    def decode_state_specs(self, batch: int, max_context: int):
+        return self.impl.decode_state_specs(batch, max_context)
+
+    def init_decode_state(self, batch: int, max_context: int, device="cuda"):
+        return self.impl.init_decode_state(batch, max_context, device)
+
+    @staticmethod
+    def insert_slot(state, slot: int, new_state):
+        """Insert a batch=1 prefill state into batch slot ``slot``, in place
+        (the JAX facade returns a new state); returns ``state``.
+
+        Layout-aware: ``blocks`` leaves are stacked [R, B, ...] (batch is
+        dim 1); every other state leaf is batch-major [B, ...].
+        """
+        for key, val in state.items():
+            if key == "blocks":
+                tree_map(lambda d, s: d[:, slot].copy_(s[:, 0]), val,
+                         new_state[key])
+            else:
+                tree_map(lambda d, s: d[slot].copy_(s[0]), val,
+                         new_state[key])
+        return state
+
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)

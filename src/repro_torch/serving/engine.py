@@ -21,11 +21,16 @@ event-driven simulator (serving/simulator.py) owns latency/throughput.
 Output-equivalence of mirage vs vllm modes is what the integration tests
 assert — remapping must never change results.
 
-The port runs eagerly (no jit cache) and serves paged attention-stack
-tenants. Dense (``paged=False``) tenants, enc-dec and VLM inputs, and the
-fleet hooks (``export_prefix``/``import_prefix``/``prefix_snapshot``/
-``withdraw_pending``/``drain_for_removal``) raise ``NotImplementedError``:
-they wait for later slices (ROADMAP).
+The port runs eagerly (no jit cache). It serves paged attention-stack
+tenants and dense (``paged=False``) recurrent tenants (xLSTM: mLSTM +
+sLSTM), whose per-slot decode state is the recurrent state; a remapped
+dense tenant streams its cycling repeats (one repeat = one pattern period
+of layers) from pinned host memory exactly as a paged one does. Dense
+attention tenants (dense and ring-buffer KV decode), Mamba and MoE stacks,
+enc-dec and VLM inputs, and the fleet hooks (``export_prefix``/
+``import_prefix``/``prefix_snapshot``/``withdraw_pending``/
+``drain_for_removal``) raise ``NotImplementedError``: they wait for later
+slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -111,7 +116,8 @@ class TenantConfig:
     # kernels/paged_attention (attention-stack archs only). Pool pages map
     # 1:1 to allocator page ids; a remap tier switch that grows the
     # allocator grows the pool (the donated-memory segments become pages).
-    # The port serves paged tenants only: paged=False raises.
+    # paged=False: a dense per-slot decode state; the port serves it for
+    # recurrent stacks (xLSTM) and raises for attention stacks.
     paged: bool = False
 
 
@@ -120,12 +126,16 @@ class Tenant:
 
     def __init__(self, name: str, tc: TenantConfig, hw: HardwareSpec,
                  device):
-        if not tc.paged:
-            raise NotImplementedError(
-                f"{name}: dense (paged=False) tenants: {_LATER}")
         self.name = name
         self.cfg = tc.cfg
-        self.model = build_model(tc.cfg)
+        self.model = build_model(tc.cfg)   # raises on unported blocks
+        lm = self.model.impl
+        if not tc.paged and not lm.recurrent:
+            raise NotImplementedError(
+                f"{name}: paged=False on an attention stack: dense and "
+                f"ring-buffer attention decode {_LATER}")
+        if tc.paged and not lm.attention_only:
+            raise ValueError(f"paged mode needs an attention stack: {name}")
         self.params = tc.params
         self.device = torch.device(device)
         for leaf in tree_leaves(tc.params):
@@ -140,7 +150,9 @@ class Tenant:
         self.queue: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * tc.max_batch
         self.paged = tc.paged
-        self.state = None
+        self.state = None if tc.paged else \
+            self.model.init_decode_state(tc.max_batch, tc.max_context,
+                                         self.device)
 
     def init_paged_state(self, total_pages: int, page_size: int):
         """Pool covers every allocator page id + one scratch page (used by
@@ -200,6 +212,11 @@ class Tenant:
 
     def running(self) -> List[Request]:
         return [r for r in self.slots if r is not None]
+
+    def write_slot_state(self, slot: int, new_state) -> None:
+        """Insert a prefill result (batch=1 state) into batch slot (in
+        place)."""
+        self.state = self.model.insert_slot(self.state, slot, new_state)
 
     def clear_slot(self, slot: int) -> None:
         """Release a batch slot. For paged tenants the slot's page-table
@@ -320,9 +337,8 @@ class ServingEngine:
         self._prefix_listener = None
         self._import_seq = 0
         for t in self.tenants.values():
-            # the port's LM accepts attention stacks only (it raises on
-            # any other pattern when the tenant builds its model)
-            t.init_paged_state(self.allocator.total_pages, page_size)
+            if t.paged:
+                t.init_paged_state(self.allocator.total_pages, page_size)
 
     # --------------------------------------------- API (ServingRuntime)
     def submit(self, reqs: List[Request]) -> None:
@@ -707,11 +723,16 @@ class ServingEngine:
         prompt = torch.from_numpy(
             np.asarray(r.prompt[None, :], np.int64)).to(t.device)
         batch = {"tokens": prompt}
-        logits = self._prefill_paged(t, r, slot, batch)
+        if t.paged:
+            logits = self._prefill_paged(t, r, slot, batch)
+        else:
+            logits, state1 = t.model.prefill(t.params, batch, t.max_context)
         self._keep_logits(r, logits[0])
         tok = int(torch.argmax(logits[0]))
         t.slots[slot] = r
         r.slot = slot
+        if not t.paged:
+            t.write_slot_state(slot, state1)
         r.generated.append(tok)
         r.t_first_token = float(self.step_idx)
         r.token_times.append(float(self.step_idx))
@@ -870,12 +891,14 @@ class ServingEngine:
         tokens = np.zeros((t.max_batch,), np.int32)
         for r in reqs:
             tokens[r.slot] = r.generated[-1]
-        # per-token page allocations land in the allocator; sync the
-        # running slots' page-table rows before the step
-        pt = t.state["page_table"].cpu().numpy().copy()
-        for r in reqs:
-            pt[r.slot] = t.page_row(self.allocator.seq_pages[r.rid])
-        t.state = dict(t.state, page_table=torch.from_numpy(pt).to(t.device))
+        if t.paged:
+            # per-token page allocations land in the allocator; sync the
+            # running slots' page-table rows before the step
+            pt = t.state["page_table"].cpu().numpy().copy()
+            for r in reqs:
+                pt[r.slot] = t.page_row(self.allocator.seq_pages[r.rid])
+            t.state = dict(t.state,
+                           page_table=torch.from_numpy(pt).to(t.device))
         tokens = torch.from_numpy(tokens).to(t.device)
         # the interim plan mid-drain keeps pending layers in the cycle set,
         # so the remapped fetch path stays consistent through a tier switch
@@ -886,8 +909,7 @@ class ServingEngine:
         if remapped:
             resident, cycle, maps = self.xfer.split[t.name]
             fetch = make_fetch(resident, cycle, maps, slots=max(plan.beta, 1))
-            logits, t.state = t.model.impl.decode_step_paged(
-                t.params, t.state, tokens, fetch=fetch)
+            logits, t.state = self._decode_fn(t, tokens, fetch)
             self.xfer.host_fetch_bytes += getattr(fetch, "h2d_bytes", 0)
             # shared-pipeline bubble accounting (same event model and
             # inputs the simulator charges for this plan)
@@ -900,8 +922,7 @@ class ServingEngine:
             # simulator's denominator
             self.xfer.stats.decode_time_s += \
                 t.perf.decode_step_time(batch, avg_ctx)
-            logits, t.state = t.model.impl.decode_step_paged(
-                t.params, t.state, tokens)
+            logits, t.state = self._decode_fn(t, tokens)
         choices = torch.argmax(logits, dim=-1).cpu().numpy()
         for r in list(reqs):
             r.generated.append(int(choices[r.slot]))
@@ -910,6 +931,16 @@ class ServingEngine:
                     r.total_len >= t.max_context - 1:
                 self._finish(t, r)
         return pressure
+
+    @staticmethod
+    def _decode_fn(t: Tenant, tokens, fetch=None):
+        """One decode step of tenant ``t``: against its paged pool, or
+        against its dense recurrent state (both updated in place)."""
+        if t.paged:
+            return t.model.impl.decode_step_paged(t.params, t.state, tokens,
+                                                  fetch=fetch)
+        return t.model.decode_step(t.params, t.state, tokens, t.max_context,
+                                   fetch=fetch)
 
     # ------------------------------------------------------------ preemption
     def _preempt_one(self, exclude: str = "") -> bool:

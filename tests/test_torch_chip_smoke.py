@@ -1,7 +1,7 @@
-"""chip_smoke.py's serve and remap phases, rehearsed on the CPU at a tiny
-size: the same engine calls, checks and printouts as on the card, with the
-kernels' plain versions (the script itself refuses to run without a CUDA
-device)."""
+"""chip_smoke.py's serve and remap phases (llama3-8b and xlstm-1.3b),
+rehearsed on the CPU at a tiny size: the same engine calls, checks and
+printouts as on the card, with the kernels' plain versions (the script
+itself refuses to run without a CUDA device)."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -29,7 +29,8 @@ def _one_torch_thread():
 @pytest.fixture
 def on_cpu(monkeypatch):
     for name, value in (("DEVICE", "cpu"), ("PROMPT", 24), ("NEW", 5),
-                        ("PAGE", 4)):
+                        ("PAGE", 4), ("REMAP_PROMPT", 18), ("REMAP_NEW", 6),
+                        ("REMAP_PAGES", (8, 64))):
         monkeypatch.setattr(chip_smoke, name, value)
     return dataclasses.replace(scaled_config(ARCHS["llama3-8b"],
                                              num_layers=2), dtype="bfloat16")
@@ -38,11 +39,54 @@ def on_cpu(monkeypatch):
 def test_serve_and_remap_phases_run(on_cpu, capsys):
     launches = chip_smoke.phase_serve(on_cpu)
     assert set(launches) == {"paged_decode_attention",
-                             "paged_prefill_attention", "flash_attention"}
+                             "paged_prefill_attention", "flash_attention",
+                             "ssd_scan"}
     chip_smoke.phase_remap(on_cpu)
     out = capsys.readouterr().out
     assert "finished 8 requests" in out
     assert "generated tokens identical to the ample-pool run" in out
+
+
+def test_xlstm_serve_and_remap_phases_run(on_cpu, capsys):
+    """16 layers: two repeats of the 8-layer pattern, bf16."""
+    cfg = dataclasses.replace(scaled_config(ARCHS["xlstm-1.3b"],
+                                            num_layers=16), dtype="bfloat16")
+    counts = chip_smoke.phase_xlstm(cfg)
+    assert counts["ssd_scan"] == 0          # the plain version on the CPU
+    chip_smoke.phase_xlstm_remap(cfg)
+    out = capsys.readouterr().out
+    assert "[xlstm] finished 8 requests" in out
+    assert "prefill of P-1 and one decode step" in out
+    assert "1 remap and" in out
+    assert "generated tokens identical to the ample-budget run" in out
+
+
+def test_ssd_work_counts_the_ragged_chunk():
+    bf16, f32 = chip_smoke.ssd_chunk_work(65, 2, 3, chunk=64)
+    pairs = 64 * 65 // 2 + 1
+    assert bf16 == pairs * 2 * 2
+    assert f32 == pairs * 2 * 3 + 2 * 1 * 2 * 3 + 2 * 65 * 2 * 3
+    nbytes, _, _ = chip_smoke.ssd_work(1, 65, 1, 2, 3)
+    assert nbytes == 2 * 65 * 2 * 2 + 65 * 3 * 4 + 65 * 4 + 65 * 3 * 4 \
+        + 2 * 3 * 4
+
+
+@pytest.mark.parametrize("t,dk,dv,chunk", [
+    (8, 16, 4, 8),              # T < 2 dk: one chunk, the quadratic form
+    (64, 2, 3, 1),              # T >> dk: the token-by-token recurrence
+    # the serve shape: a 496-token chunk and a ragged 16 trade bf16 scores
+    # for f32 inter-chunk products, a little under the quadratic form
+    (512, 512, 513, 496)])
+def test_ssd_work_takes_the_cheapest_chunk(t, dk, dv, chunk):
+    _, bf16, f32 = chip_smoke.ssd_work(2, t, 3, dk, dv)
+    assert (bf16, f32) == tuple(6 * w for w in chip_smoke.ssd_chunk_work(
+        t, dk, dv, chunk))
+    quadratic = chip_smoke.ssd_chunk_work(t, dk, dv, t)
+    assert quadratic == (t * (t + 1) * dk,
+                         t * (t + 1) * dv + 2 * t * dk * dv)
+    for w in (quadratic, chip_smoke.ssd_chunk_work(t, dk, dv, 64)):
+        assert chip_smoke.bound(0, bf16, f32) <= chip_smoke.bound(
+            0, 6 * w[0], 6 * w[1])
 
 
 def test_refuses_to_run_without_a_card(monkeypatch, capsys):

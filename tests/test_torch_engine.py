@@ -117,8 +117,11 @@ def test_engine_matches_jax_engine(weights, case):
 
 
 def test_unported_paths_raise(weights):
+    """paged=False serves recurrent stacks now (tests/test_torch_engine_
+    xlstm.py); on an attention stack, a Mamba stack and an MoE stack it
+    still raises, naming the ROADMAP item, as do the fleet hooks."""
     cfg, jp, tcfg, tp = weights["A"]
-    with pytest.raises(NotImplementedError, match="paged=False"):
+    with pytest.raises(NotImplementedError, match="paged=False.*ROADMAP"):
         ServingEngine({"A": TenantConfig(tcfg, tp, paged=False)},
                       device="cpu")
     eng = ServingEngine({"A": TenantConfig(tcfg, tp, paged=True)},
@@ -129,10 +132,16 @@ def test_unported_paths_raise(weights):
                        ("drain_for_removal", ())):
         with pytest.raises(NotImplementedError):
             getattr(eng, hook)(*args)
+    jamba = tcfgs.scaled_config(tcfgs.ARCHS["jamba-v0.1-52b"], num_layers=4)
+    mamba = dataclasses.replace(jamba, family="ssm", attn_period=0, moe=None)
     moe = tcfgs.scaled_config(tcfgs.ARCHS["moonshot-v1-16b-a3b"],
                               num_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine({"M": TenantConfig(moe, tp, paged=True)}, device="cpu")
+    for unported, what in ((mamba, "mamba"), (moe, "moe")):
+        for paged in (False, True):
+            with pytest.raises(NotImplementedError,
+                               match=f"{what}.*ROADMAP"):
+                ServingEngine({"M": TenantConfig(unported, tp, paged=paged)},
+                              device="cpu")
 
 
 def test_prefill_logits_kept_per_request_agree_across_prefill_paths(weights):

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on a
 CUDA device (skipped elsewhere), at the kernel test cases' shapes plus head
-dims that exercise the tensor-core path's padding. Imports neither JAX nor
-``repro``, so it runs on a machine with a card and no JAX:
+dims that exercise the tensor-core path's padding, and the SSD scan at
+chip_smoke.py's shapes (xLSTM, a ragged T, Mamba widths) plus the cases of
+tests/test_ssd_kernel.py. Imports neither JAX nor ``repro``, so it runs on
+a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -13,7 +15,10 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import attention_ops as plain  # noqa: E402
+from repro_torch.models.blocks import ssd_decode_step  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # B, Sq, Sk, Hq, Hkv, D, causal, window (tests/test_kernels.py FLASH_CASES,
@@ -171,3 +176,86 @@ def test_streamed_layers_decode_like_resident_ones(cuda, slots):
     assert torch.equal(got, ref)
     ident = split_blocks(params["blocks"], identity_plan(4), pin_cycle=True)
     assert not isinstance(make_fetch(*ident), StreamingFetch)
+
+
+# B, T, H, dk, dv, chunk: tests/test_ssd_kernel.py CASES, then the xLSTM
+# prefill (T 512, dk 512, dv 513), a ragged T and Mamba's widths
+SSD = [(2, 32, 3, 8, 8, 8), (1, 64, 2, 16, 8, 16), (2, 48, 1, 8, 16, 16),
+       (1, 128, 4, 32, 32, 32), (2, 40, 2, 8, 8, 16),
+       (1, 512, 4, 512, 513, 128), (1, 509, 4, 512, 513, 128),
+       (1, 512, 128, 16, 64, 128)]
+# y and the final state within SSD_RTOL * max(1, max|plain|): f32
+# arithmetic on both sides over the same inputs, in another chunking and
+# summation order
+SSD_RTOL = 1e-4
+
+
+def _ssd_inputs(rng, case, qk_dt, dev):
+    B, T, H, dk, dv, _ = case
+    q = _randn(rng, (B, T, H, dk), torch.float32, dev) * dk ** -0.5
+    k = _randn(rng, (B, T, H, dk), torch.float32, dev) * dk ** -0.25
+    v = _randn(rng, (B, T, H, dv), torch.float32, dev)
+    la = -torch.nn.functional.softplus(
+        _randn(rng, (B, T, H), torch.float32, dev))
+    return q.to(qk_dt), k.to(qk_dt), v, la
+
+
+def _rel(out, ref) -> float:
+    return _err(out, ref) / max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qk_dt", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda, qk_dt):
+    rng = np.random.default_rng(3)
+    kernels.reset_launch_counts()
+    for case in SSD:
+        q, k, v, la = _ssd_inputs(rng, case, qk_dt, cuda)
+        y, f = ssd_ops.ssd_scan(q, k, v, la, chunk=case[-1])
+        ry, rf = ssd_scan_ref(q, k, v, la, chunk=case[-1])
+        assert y.dtype == f.dtype == torch.float32
+        assert y.shape == ry.shape and f.shape == rf.shape
+        assert _rel(y, ry) <= SSD_RTOL and _rel(f, rf) <= SSD_RTOL, case
+    assert kernels.launch_counts()["ssd_scan"] == len(SSD)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_state_continues_the_recurrence(cuda):
+    """Kernel over T tokens, one plain decode step, against the kernel
+    over T + 1 (a ragged last chunk)."""
+    rng = np.random.default_rng(4)
+    B, T, H, dk, dv = 1, 512, 4, 512, 513
+    q, k, v, la = _ssd_inputs(rng, (B, T + 1, H, dk, dv, 0), torch.bfloat16,
+                              cuda)
+    y_all, f_all = ssd_ops.ssd_scan(q, k, v, la)
+    _, f_t = ssd_ops.ssd_scan(*(x[:, :T].contiguous() for x in (q, k, v, la)))
+    y_step, f_step = ssd_decode_step(q[:, T], k[:, T], v[:, T], la[:, T], f_t)
+    assert _rel(y_step, y_all[:, T]) <= SSD_RTOL
+    assert _rel(f_step, f_all) <= SSD_RTOL
+
+
+@pytest.mark.gpu
+def test_ssd_scan_is_bitwise_reproducible(cuda):
+    rng = np.random.default_rng(5)
+    args = _ssd_inputs(rng, SSD[6], torch.bfloat16, cuda)
+    a, b = ssd_ops.ssd_scan(*args), ssd_ops.ssd_scan(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_ssd_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 4, device=cuda)
+    v = torch.zeros(1, 8, 2, 5, device=cuda)
+    la = torch.zeros(1, 8, 2, device=cuda)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(q, q, v, la.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(q, q.to(torch.bfloat16), v, la)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(q, q, v.to(torch.bfloat16), la)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(q.transpose(1, 2), q.transpose(1, 2), v, la)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_scan(q, q, v[:, :4], la)
+    with pytest.raises(ValueError, match="mixed devices"):
+        ssd_ops.ssd_scan(q, q, v.cpu(), la)
