@@ -44,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +61,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -152,6 +154,54 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_turns(fns, reps, rounds: int = 2):
+    """Each callable of ``fns`` (name -> fn) timed ``rounds`` times over
+    ``reps`` launches (an int, or name -> int), in turns (a b, then b a,
+    ...), so that a change of clock or power between them falls on all
+    alike. Returns (name -> mean ms, name -> each ms)."""
+    each = {name: [] for name in fns}
+    order = list(fns)
+    for fn in fns.values():     # clocks up and caches warm before the turns
+        time_ms(fn, 3, warmup=5)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            n = reps[name] if isinstance(reps, dict) else reps
+            each[name].append(time_ms(fns[name], n))
+    return {n: sum(t) / len(t) for n, t in each.items()}, each
+
+
+def host_us_per_call(fn, reps: int = 200) -> float:
+    """Host microseconds a call takes to return (checks, encoding and
+    enqueue; the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def _fmt(times) -> str:
+    return "/".join(f"{t:.4f}" for t in times)
+
+
+# The kernels' times before their redesign for Hopper (PERF.md: earlier
+# chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
+# this run's; keyed by (kernel, shape).
+EARLIER_MS = {("flash_attention", 512): 0.1463,
+              ("flash_attention", 2048): 1.3698,
+              ("ssd_scan", "xlstm"): 0.5231, ("ssd_scan", "mamba"): 0.1926,
+              ("paged_prefill_attention", None): 0.1329,
+              ("paged_decode_attention", None): 0.0729}
+
+
+def _earlier(name, shape, ms: float) -> str:
+    old = EARLIER_MS.get((name, shape))
+    return "" if old is None else f"; before: {old} ms ({old / ms:.2f}x)"
+
+
 def bound(nbytes: float, flops: float, f32_flops: float = 0.0):
     """(ms, "bytes" | "operations"): the larger of bytes over the memory
     rate and operations over their peak: ``flops`` on bf16 operands at the
@@ -166,6 +216,15 @@ def visible(qpos: int, kv_limit: int, window: int, causal: bool = True) -> int:
     hi = min(kv_limit, qpos + 1) if causal else kv_limit
     lo = max(0, qpos - window + 1) if window > 0 else 0
     return max(hi - lo, 0)
+
+
+def attention_work(sq: int, sk: int, hq: int, hkv: int, d: int,
+                   causal: bool = True, window: int = 0):
+    """(bytes, flops) of one bf16 attention call at batch 1: Q, K and V read
+    and O written once; Q K^T and P V are 4 D flops per query head and key
+    that its query sees."""
+    seen = sum(visible(i, sk, window, causal) for i in range(sq))
+    return (2 * sq * hq * d + 2 * sk * hkv * d) * 2, 4 * hq * d * seen
 
 
 # -------------------------------------------------------------- phase 0, 1
@@ -191,6 +250,63 @@ def phase_build():
     build.load()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds if build.build_seconds else 0:.2f} s)")
+    for src in ("flash_attention.cu", "ssd_scan.cu"):
+        for k in ptxas_summary(build.compile_log.get(src, "")):
+            log(f"[build] ptxas {src} {k['kernel']}: {k['registers']} "
+                f"registers, {k['smem']} bytes static smem, spill stores "
+                f"{k['spill_stores']} bytes, spill loads {k['spill_loads']} "
+                f"bytes" + (", wgmma serialized (C7512)"
+                            if k["wgmma_serialized"] else ""))
+
+
+_TEMPLATE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel of this repo: the function's
+    identifier (the one after its namespace) and its template argument."""
+    names, i = [], mangled.find("N") + 1
+    while i < len(mangled) and mangled[i].isdigit() and len(names) < 2:
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+    if len(names) < 2:
+        return mangled
+    m = re.match(r"I(?:Li(\d+)E|(f|13__nv_bfloat16))E", mangled[i:])
+    if not m:
+        return names[1]
+    return f"{names[1]}<{m.group(1) or _TEMPLATE_ARGS[m.group(2)]}>"
+
+
+def ptxas_summary(log_text: str):
+    """Per kernel in ``nvcc -Xptxas -v`` output: its registers, static
+    shared memory, spilled bytes, and whether ptxas serialised its wgmma
+    instructions for want of registers (warning C7512)."""
+    serial = set(re.findall(r"C7512\).*function '(\w+)'", log_text))
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": kernel_name(m.group(1)), "registers": 0,
+                   "smem": 0, "spill_stores": 0, "spill_loads": 0,
+                   "wgmma_serialized": m.group(1) in serial}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -321,25 +437,11 @@ def time_kernels(gen):
     out["paged_prefill_attention"] = (
         ms, plain_ms, *bound(nbytes, 4 * HQ * D * seen), None,
         "Sq=256 q_start=256 ctx=512 bf16")
-    # flash: monolithic prefill of one 512-token prompt
-    s = 512
-    q = torch.randn(1, s, HQ, D, generator=gen, device="cuda").to(dt)
-    k = torch.randn(1, s, HKV, D, generator=gen, device="cuda").to(dt)
-    v = torch.randn(1, s, HKV, D, generator=gen, device="cuda").to(dt)
-    ms = time_ms(lambda: flash_ops.flash_attention(q, k, v), 100)
-    plain_ms = time_ms(lambda: plain.flash_attention(q, k, v), 10)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 100)
-    seen = sum(visible(i, s, 0) for i in range(s))
-    nbytes = (2 * q.numel() + 2 * s * HKV * D) * 2
-    out["flash_attention"] = (
-        ms, plain_ms, *bound(nbytes, 4 * HQ * D * seen), lib_ms,
-        "B=1 S=512 causal bf16")
     for name, (ms, pms, bms, by, lib, shape) in out.items():
         log(f"[kernels] time {name} ({shape}): {ms:.4f} ms, plain "
             f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), library "
-            f"{'none' if lib is None else f'{lib:.4f} ms'}")
+            f"{'none' if lib is None else f'{lib:.4f} ms'}"
+            + _earlier(name, None, ms))
     # the long-context shapes of the checks, for the record
     b, n, layers = 8, 192, 4
     kp, vp = _pool(b * n + 1, dt, gen, layers)
@@ -351,19 +453,43 @@ def time_kernels(gen):
                     4 * HQ * D * 2048 * b)
     log(f"[kernels] time paged_decode_attention (B=8 ctx=2048 bf16): "
         f"{ms:.4f} ms, bound {bms:.4f} ms ({by})")
-    s = 2048
-    q = torch.randn(1, s, HQ, D, generator=gen, device="cuda").to(dt)
-    k = torch.randn(1, s, HKV, D, generator=gen, device="cuda").to(dt)
-    v = torch.randn(1, s, HKV, D, generator=gen, device="cuda").to(dt)
-    ms = time_ms(lambda: flash_ops.flash_attention(q, k, v), 20)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    bms, by = bound((2 * q.numel() + 2 * s * HKV * D) * 2,
-                    4 * HQ * D * s * (s + 1) / 2)
-    log(f"[kernels] time flash_attention (B=1 S=2048 causal bf16): "
-        f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), library {lib_ms:.4f} ms")
+    out["flash_attention"] = time_flash(gen)
     return out
+
+
+def time_flash(gen):
+    """Flash at the monolithic prefill of one 512-token prompt (the serve
+    phase's shape) and at S=2048, in turns with one PyTorch SDPA call on the
+    same inputs; the plain version once; the host cost of the tensor maps
+    each call encodes."""
+    row = None
+    for s in (512, 2048):
+        q, k, v = (torch.randn(1, s, h, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for h in (HQ, HKV, HKV))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        reps = 100 if s == 512 else 30
+        ms, turns = time_turns({
+            "kernel": lambda: flash_ops.flash_attention(q, k, v),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)}, reps)
+        plain_ms = time_ms(lambda: plain.flash_attention(q, k, v), 5)
+        nbytes, flops = attention_work(s, s, HQ, HKV, D)
+        bms, by = bound(nbytes, flops)
+        enc_ns = flash_kernel.encode_ns(q, k, v)
+        host_us = host_us_per_call(lambda: flash_ops.flash_attention(q, k, v))
+        log(f"[kernels] time flash_attention (B=1 S={s} causal bf16): "
+            f"{ms['kernel']:.4f} ms (turns {_fmt(turns['kernel'])}), SDPA "
+            f"{ms['sdpa']:.4f} ms (turns {_fmt(turns['sdpa'])}), kernel/SDPA "
+            f"{ms['kernel'] / ms['sdpa']:.3f}; plain {plain_ms:.4f} ms; "
+            f"bound {bms:.4f} ms ({by}), {bms / ms['kernel']:.3f} of it"
+            + _earlier("flash_attention", s, ms["kernel"]))
+        log(f"[kernels] flash host cost (S={s}): three tensor maps encoded "
+            f"in {enc_ns / 1e3:.3f} us per call; the wrapper's whole host "
+            f"time {host_us:.2f} us per call")
+        if row is None:
+            row = (ms["kernel"], plain_ms, bms, by, ms["sdpa"],
+                   f"B=1 S={s} causal bf16")
+    return row
 
 
 def phase_kernels():
@@ -462,19 +588,42 @@ def ssd_work(b, t, h, dk, dv):
 
 def time_ssd(gen):
     """The kernel at the serve phase's shape (one 512-token prompt, one
-    mLSTM layer) and, for the record, at Mamba's widths."""
+    mLSTM layer) and at Mamba's widths, in turns with the plain version;
+    the device time of each of its launches, from the profiler."""
     out = None
     for b, t, h, dk, dv, what in SSD_CASES[::2]:
         q, k, v, la = ssd_inputs(gen, b, t, h, dk, dv, what != "mamba")
-        ms = time_ms(lambda: ssd_ops.ssd_scan(q, k, v, la), 50)
-        plain_ms = time_ms(lambda: ssd_scan_ref(q, k, v, la), 10)
+        ms, turns = time_turns({
+            "kernel": lambda: ssd_ops.ssd_scan(q, k, v, la),
+            "plain": lambda: ssd_scan_ref(q, k, v, la)}, {"kernel": 50,
+                                                          "plain": 10})
         bms, by = bound(*ssd_work(b, t, h, dk, dv))
         shape = f"B={b} T={t} H={h} dk={dk} dv={dv} bf16 q/k, f32 v"
-        log(f"[kernels] time ssd_scan ({what}, {shape}): {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library none")
+        log(f"[kernels] time ssd_scan ({what}, {shape}): {ms['kernel']:.4f} "
+            f"ms (turns {_fmt(turns['kernel'])}), plain {ms['plain']:.4f} ms "
+            f"(turns {_fmt(turns['plain'])}), bound {bms:.4f} ms ({by}), "
+            f"{bms / ms['kernel']:.3f} of it, library none"
+            + _earlier("ssd_scan", what, ms["kernel"]))
+        parts = device_us(lambda: ssd_ops.ssd_scan(q, k, v, la))
+        log(f"[kernels] ssd_scan ({what}) device time by kernel: "
+            + ", ".join(f"{name} {us:.2f} us" for name, us in parts))
         if out is None:
-            out = (ms, plain_ms, bms, by, None, shape)
+            out = (ms["kernel"], ms["plain"], bms, by, None, shape)
     return out
+
+
+def device_us(fn, calls: int = 10):
+    """(kernel name, device microseconds per call) of the kernels ``fn``
+    launches, from the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key.split("(")[0].split("<")[0][-40:],
+             e.self_device_time_total / calls)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
 
 
 # ---------------------------------------------------------------- phase 3

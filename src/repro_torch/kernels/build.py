@@ -21,7 +21,10 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept in
+# ``compile_log`` by source
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, sizes c_int
@@ -29,11 +32,14 @@ SIGNATURES = {
     "rt_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
     "rt_paged_prefill_attention": [_P] * 7 + [_I] * 9 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
-    "rt_ssd_scan": [_P] * 8 + [_I] * 6 + [_P],
+    "rt_ssd_scan": [_P] * 9 + [_I] * 6 + [_P],
+    "rt_flash_encode_ns": [_P] * 3 + [_I] * 7,
 }
+RESTYPES = {"rt_flash_encode_ns": ctypes.c_double}   # the rest: c_int
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None     # wall time of this process's build
+compile_log: dict = {}    # source name -> nvcc output, of this process's build
 
 
 def _sources():
@@ -60,18 +66,21 @@ def library_path() -> Path:
 
 
 def _run_all(cmds):
-    """Run the commands at once; raise with the output of any that fail."""
+    """Run the commands at once and return their outputs; raise with the
+    output of any that fail."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, p in zip(cmds, procs):
         out, _ = p.communicate()
+        outs.append(out)
         if p.returncode != 0:
             failed.append(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}"
                           f"\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build() -> Path:
@@ -89,8 +98,9 @@ def build() -> Path:
     obj_of = {p: objs / f"{p.stem}.o" for p in srcs}
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_of[p]), str(p)]
-                  for p in srcs])
+        outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_of[p]),
+                          str(p)] for p in srcs])
+        compile_log.update({p.name: o for p, o in zip(srcs, outs)})
         _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
                    *(str(obj_of[p]) for p in srcs)]])
     finally:
@@ -108,7 +118,7 @@ def load() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

@@ -1,7 +1,9 @@
 """Wrapper of the CUDA flash attention kernel (``csrc/flash_attention.cu``):
 check the inputs, allocate the output, launch on PyTorch's current stream,
 count the launch, and raise on an error code. CUDA tensors only; ``ops.py``
-sends CPU tensors to the plain version instead."""
+sends CPU tensors to the plain version instead. The bf16 kernel reads Q, K
+and V through TMA tensor maps, encoded on the host for each call: every
+buffer must be 16-byte aligned."""
 from __future__ import annotations
 
 import torch
@@ -25,7 +27,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     bk, sk, hkv, dk = k.shape
     if bk != b or dk != d or hq % hkv:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    _check_head_dim(name, d, q.dtype, k, v)
+    _check_head_dim(name, d, q.dtype, q, k, v)
     out = torch.empty_like(q)
     err = build.load().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -38,3 +40,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+def encode_ns(q, k, v, reps: int = 1000) -> float:
+    """Host nanoseconds one bf16 call spends encoding its three tensor maps
+    (the mean over ``reps`` encodings; nothing is launched)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    ns = build.load().rt_flash_encode_ns(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), b, sq, sk, hq, hkv, d, reps)
+    if ns < 0:
+        raise RuntimeError("flash_attention: the driver refused a tensor map")
+    return ns

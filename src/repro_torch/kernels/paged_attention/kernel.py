@@ -29,15 +29,16 @@ def _check_cuda(name, **tensors):
     return dev
 
 
-def _check_head_dim(name, d, dtype, *kv):
-    """The kernels move K/V in 16-byte chunks: D must be a multiple of one
-    chunk's elements and the K/V buffers 16-byte aligned."""
+def _check_head_dim(name, d, dtype, *bufs):
+    """The kernels move K/V in 16-byte chunks (flash: Q/K/V in TMA tiles):
+    D must be a multiple of one chunk's elements and the buffers 16-byte
+    aligned."""
     vec = 16 // torch.empty((), dtype=dtype).element_size()
     if d > MAX_HEAD_DIM or d % vec:
         raise ValueError(f"{name}: head_dim {d} must be a multiple of {vec} "
                          f"and at most {MAX_HEAD_DIM}")
-    if any(t.data_ptr() % 16 for t in kv):
-        raise ValueError(f"{name}: K/V buffers must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in bufs):
+        raise ValueError(f"{name}: Q/K/V buffers must be 16-byte aligned")
 
 
 def _check_kv(name, q, k_pool, v_pool, hq, d):

@@ -1,7 +1,8 @@
 """Wrapper of the CUDA SSD-scan kernel (``csrc/ssd_scan.cu``): check the
-inputs, allocate the outputs and the scores scratch, launch on PyTorch's
-current stream, count the launch, and raise on an error code. CUDA tensors
-only; ``ops.py`` sends CPU tensors to the plain version instead."""
+inputs, allocate the outputs and the scratch (the chunks' scores and
+decayed queries, the states entering each chunk), launch on PyTorch's current
+stream, count the launch, and raise on an error code. CUDA tensors only;
+``ops.py`` sends CPU tensors to the plain version instead."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +11,18 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.kernel import _DTYPE_CODES, _check_cuda
 
 CHUNK = 64        # tokens per chunk of the kernel (L in csrc/ssd_scan.cu)
-MAX_DK = 2048     # the [dk, 16] f32 state slice must fit shared memory
+TILE = 64         # value columns per block (TILE in csrc/ssd_scan.cu)
+MAX_DK = 2048     # the largest key width the wrapper takes
+
+
+def scratch_shapes(b: int, t: int, h: int, dk: int, dv: int) -> dict:
+    """The f32 scratch one call needs: each chunk's scores and decayed
+    queries (both transposed), and the state entering each chunk after the
+    first, its value columns padded to whole 64-column tiles (one slot when
+    T fits one chunk, never read)."""
+    nc = -(-t // CHUNK)
+    return {"scores": (b, h, nc, CHUNK, CHUNK), "qt": (b, h, nc, dk, CHUNK),
+            "states": (b, h, max(nc - 1, 1), dk, -(-dv // TILE) * TILE)}
 
 
 def ssd_scan(q, k, v, log_a):
@@ -33,15 +45,15 @@ def ssd_scan(q, k, v, log_a):
                          f"log_a {tuple(log_a.shape)} disagree")
     if t < 1 or dk < 1 or dv < 1 or dk > MAX_DK:
         raise ValueError(f"{name}: need T, dk, dv >= 1 and dk <= {MAX_DK}")
-    nc = -(-t // CHUNK)
     f32 = dict(dtype=torch.float32, device=q.device)
     y = torch.empty((b, t, h, dv), **f32)
     final = torch.empty((b, h, dk, dv), **f32)
-    scores = torch.empty((b, h, nc, CHUNK, CHUNK), **f32)
-    cum = torch.empty((b, h, nc, CHUNK), **f32)
+    scratch = {key: torch.empty(shape, **f32)
+               for key, shape in scratch_shapes(b, t, h, dk, dv).items()}
     err = build.load().rt_ssd_scan(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), final.data_ptr(), scores.data_ptr(), cum.data_ptr(),
+        y.data_ptr(), final.data_ptr(), scratch["scores"].data_ptr(),
+        scratch["qt"].data_ptr(), scratch["states"].data_ptr(),
         b, t, h, dk, dv, _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)

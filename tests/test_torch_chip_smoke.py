@@ -95,3 +95,53 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
         chip_smoke.main()
     assert e.value.code != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_attention_work_counts_the_visible_keys():
+    # causal S=4: 1 + 2 + 3 + 4 keys; a window of 2: 1 + 2 + 2 + 2
+    assert chip_smoke.attention_work(4, 4, 2, 1, 8) == (
+        (2 * 4 * 2 * 8 + 2 * 4 * 1 * 8) * 2, 4 * 2 * 8 * 10)
+    assert chip_smoke.attention_work(4, 4, 2, 1, 8, window=2)[1] == \
+        4 * 2 * 8 * 7
+    assert chip_smoke.attention_work(3, 5, 1, 1, 8, causal=False)[1] == \
+        4 * 8 * 15
+    # the serve shape's bound: S (S + 1) / 2 pairs
+    assert chip_smoke.attention_work(2048, 2048, 32, 8, 128)[1] == \
+        4 * 32 * 128 * 2048 * 2049 // 2
+
+
+PTXAS = """\
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to insufficient register resources for the \
+function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_f0d7563511flash_\
+wgmmaILi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiiiif'
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_\
+attention_cu_f0d7563511flash_wgmmaILi2EEEv14CUtensorMap_stS1_S1_P13__nv_\
+bfloat16iiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__e7510225_18_flash_\
+attention_cu_f0d7563511flash_wgmmaILi2EEEv14CUtensorMap_stS1_S1_P13__nv_\
+bfloat16iiiiiiif
+    72 bytes stack frame, 72 bytes spill stores, 76 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 72 bytes cumulative \
+stack size
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__70402df9_11_ssd_\
+scan_cu_ac0ed4ba10ssd_statesI13__nv_bfloat16EEvPKT_S4_PKfS6_PfS7_S7_S7_NS_\
+5ShapeE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 17152 bytes smem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__70402df9_11_ssd_\
+scan_cu_ac0ed4ba11ssd_outputsEPKfS1_S1_S1_PfNS_5ShapeE' for 'sm_90a'
+ptxas info    : Used 64 registers, used 1 barriers
+"""
+
+
+def test_ptxas_summary_reads_registers_spills_and_serialisation():
+    got = chip_smoke.ptxas_summary(PTXAS)
+    assert got == [
+        {"kernel": "flash_wgmma<2>", "registers": 168, "smem": 0,
+         "spill_stores": 72, "spill_loads": 76, "wgmma_serialized": True},
+        {"kernel": "ssd_states<bf16>", "registers": 80, "smem": 17152,
+         "spill_stores": 0, "spill_loads": 0, "wgmma_serialized": False},
+        {"kernel": "ssd_outputs", "registers": 64, "smem": 0,
+         "spill_stores": 0, "spill_loads": 0, "wgmma_serialized": False}]
+    assert chip_smoke.ptxas_summary("") == []

@@ -22,11 +22,22 @@ from repro_torch.models.blocks import ssd_decode_step  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # B, Sq, Sk, Hq, Hkv, D, causal, window (tests/test_kernels.py FLASH_CASES,
-# plus head dims 120 and 8)
+# plus head dims 120 and 8; then the serve shapes, head dims 64, 112 and
+# 120, Sq and Sk off the 128-row and 128-key tiles, windows that straddle a
+# key tile, G = 1, 4 and 8, and head dims 256 and 192)
 FLASH = [(2, 64, 64, 4, 2, 32, True, 0), (1, 128, 128, 8, 8, 64, True, 0),
          (2, 60, 60, 4, 1, 32, True, 0), (2, 64, 64, 4, 2, 32, False, 0),
          (2, 64, 64, 4, 2, 32, True, 24), (1, 32, 32, 2, 2, 128, True, 0),
-         (1, 200, 200, 8, 2, 120, True, 0), (1, 70, 70, 4, 4, 8, False, 0)]
+         (1, 200, 200, 8, 2, 120, True, 0), (1, 70, 70, 4, 4, 8, False, 0),
+         (1, 512, 512, 32, 8, 128, True, 0),
+         (1, 2048, 2048, 32, 8, 128, True, 0),
+         (2, 300, 300, 8, 2, 64, True, 0), (1, 333, 333, 4, 1, 112, False, 0),
+         (2, 257, 257, 4, 4, 120, True, 0),
+         (1, 130, 250, 4, 2, 128, False, 0), (2, 250, 130, 8, 1, 64, True, 0),
+         (1, 400, 400, 8, 2, 128, True, 100),
+         (1, 300, 300, 4, 4, 64, False, 70),
+         (1, 256, 256, 16, 2, 128, True, 0),
+         (1, 90, 200, 2, 1, 256, True, 0), (1, 100, 100, 4, 2, 192, False, 0)]
 # B, Hq, Hkv, D, P, page, N, window (PAGED_CASES, plus D 120)
 PAGED = [(2, 4, 2, 32, 16, 8, 4, 0), (3, 8, 8, 64, 32, 16, 6, 0),
          (2, 8, 1, 32, 16, 8, 4, 0), (2, 4, 2, 32, 16, 8, 4, 20),
@@ -113,6 +124,22 @@ def test_flash_kernel_matches_plain(cuda, dt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_kernel_row_without_keys_is_zero(cuda, dt):
+    """Causal with a window and Sk < Sq: rows i >= Sk + window - 1 see no
+    key and return 0 (acc / max(l, 1e-30) over no key). The plain version
+    masks with a finite -1e30, as the JAX reference does, and returns the
+    mean of V there instead, so this case is not compared with it."""
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (1, 300, 4, 128), dt, cuda)
+    k = _randn(rng, (1, 100, 2, 128), dt, cuda)
+    v = _randn(rng, (1, 100, 2, 128), dt, cuda)
+    out = flash_ops.flash_attention(q, k, v, causal=True, window=50)
+    assert torch.equal(out[:, 149:], torch.zeros_like(out[:, 149:]))
+    assert out[:, :149].abs().amax() > 0
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 4, 4, 12, device=cuda, dtype=torch.bfloat16)
     kv = torch.zeros(1, 4, 4, 12, device=cuda, dtype=torch.bfloat16)
@@ -179,11 +206,18 @@ def test_streamed_layers_decode_like_resident_ones(cuda, slots):
 
 
 # B, T, H, dk, dv, chunk: tests/test_ssd_kernel.py CASES, then the xLSTM
-# prefill (T 512, dk 512, dv 513), a ragged T and Mamba's widths
+# prefill (T 512, dk 512, dv 513), a ragged T and Mamba's widths; then T = 1
+# and T = 65 (one token past a chunk), dv = 1, dk = 2048, B = 2 at xLSTM
+# width, and key widths whose bf16 rows are not 16-byte (dk 12) or 4-byte
+# (dk 5) aligned
 SSD = [(2, 32, 3, 8, 8, 8), (1, 64, 2, 16, 8, 16), (2, 48, 1, 8, 16, 16),
        (1, 128, 4, 32, 32, 32), (2, 40, 2, 8, 8, 16),
        (1, 512, 4, 512, 513, 128), (1, 509, 4, 512, 513, 128),
-       (1, 512, 128, 16, 64, 128)]
+       (1, 512, 128, 16, 64, 128),
+       (1, 1, 4, 512, 513, 128), (1, 65, 4, 512, 513, 128),
+       (2, 100, 3, 24, 1, 128), (1, 200, 2, 2048, 70, 128),
+       (2, 512, 4, 512, 513, 128), (1, 70, 2, 12, 20, 128),
+       (1, 30, 2, 5, 3, 128)]
 # y and the final state within SSD_RTOL * max(1, max|plain|): f32
 # arithmetic on both sides over the same inputs, in another chunking and
 # summation order

@@ -176,3 +176,16 @@ def test_mixers_match_jax(xlstm, pos, mixer):
     spec = tm.init_state(tcfg, 2, 64)
     assert {k: s.shape for k, s in spec.items()} == \
         {k: tuple(v.shape) for k, v in tn.items()}
+
+
+@pytest.mark.parametrize("t,dv,nc,slots,dvp", [
+    (1, 1, 1, 1, 64), (64, 64, 1, 1, 64), (65, 513, 2, 1, 576),
+    (512, 513, 8, 7, 576)])
+def test_ssd_kernel_scratch_shapes(t, dv, nc, slots, dvp):
+    """The CUDA wrapper's scratch: per chunk the transposed scores and
+    decayed queries, and a state slot per chunk after the first (one when
+    T fits a chunk), value columns padded to 64-column tiles."""
+    from repro_torch.kernels.ssd_scan.kernel import scratch_shapes
+    assert scratch_shapes(2, t, 3, 16, dv) == {
+        "scores": (2, 3, nc, 64, 64), "qt": (2, 3, nc, 16, 64),
+        "states": (2, 3, slots, 16, dvp)}
