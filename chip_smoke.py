@@ -11,14 +11,21 @@ no CUDA device or any phase fails. Phases:
 1. build: the hand-written CUDA kernels, from ``src/repro_torch/kernels/csrc``.
 2. kernels: each attention kernel against its plain PyTorch version at
    llama3-8b head shapes (Hq 32, Hkv 8, D 128, page 16), f32 within 1e-4
-   and bf16 within 2e-2; ssd_scan against its plain version at xLSTM width
-   (T 512, H 4, dk 512, dv 513, bf16 q/k), at a ragged T 509 and at
-   Mamba's widths (H 128, dk 16, dv 64), within 1e-4 * max(1, max|plain|)
-   for y and the final state, and the state continuation (kernel over T,
-   one plain decode step, against the kernel over T + 1); each kernel's
-   time (CUDA events), the plain version's time, the least time the card
-   could take (bound) and, for flash, the time of one PyTorch SDPA call as
-   a yardstick.
+   and bf16 within 2e-2: paged decode and prefill on wide page tables
+   (N 192) and on phase 3's own (N 36: decode at contexts 513-544 and on
+   the splits' edges, prefill at its two 256-token chunks); ssd_scan
+   against its plain version at xLSTM width (T 512, H 4, dk 512, dv 513,
+   bf16 q/k), at a ragged T 509 and at Mamba's widths (H 128, dk 16,
+   dv 64), within 1e-4 * max(1, max|plain|) for y and the final state,
+   and the state continuation (kernel over T, one plain decode step,
+   against the kernel over T + 1); each kernel's time (CUDA events; the
+   attention kernels' calls replayed from CUDA graphs), the plain
+   version's time, the least time the card could take (bound) and, for
+   flash, the time of one PyTorch SDPA call as a yardstick; paged decode's time is that of its two launches (the KV
+   splits and their combine), also split between them by the profiler,
+   and at ctx 2048; paged prefill also at the check's shape (two 256-token
+   chunks at q_start 768 and 2048). The build prints each kernel's
+   registers and spills (ptxas).
 3. serve: llama3-8b at full width and depth (32 layers, bf16, seeded random
    weights) through ``ServingEngine`` in mirage mode with a paged tenant:
    8 prompts of 512 tokens, 32 new tokens each, once with monolithic
@@ -154,6 +161,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graphed(fn, calls: int):
+    """``calls`` calls of ``fn`` captured in one CUDA graph, and a callable
+    that replays them: timing it measures the device's work alone, without
+    the host's cost of each call (the wrapper's checks and its launch),
+    which is longer than a short kernel's run."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    return g.replay
+
+
+def device_ms(fn, calls: int, reps: int) -> float:
+    """Milliseconds a call of ``fn`` keeps the device busy: ``calls`` calls
+    replayed from a CUDA graph ``reps`` times, over CUDA events."""
+    return time_ms(graphed(fn, calls), reps) / calls
+
+
 def time_turns(fns, reps, rounds: int = 2):
     """Each callable of ``fns`` (name -> fn) timed ``rounds`` times over
     ``reps`` launches (an int, or name -> int), in turns (a b, then b a,
@@ -187,14 +214,18 @@ def _fmt(times) -> str:
     return "/".join(f"{t:.4f}" for t in times)
 
 
-# The kernels' times before their redesign for Hopper (PERF.md: earlier
-# chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
-# this run's; keyed by (kernel, shape).
-EARLIER_MS = {("flash_attention", 512): 0.1463,
-              ("flash_attention", 2048): 1.3698,
-              ("ssd_scan", "xlstm"): 0.5231, ("ssd_scan", "mamba"): 0.1926,
-              ("paged_prefill_attention", None): 0.1329,
-              ("paged_decode_attention", None): 0.0729}
+# The kernels' times on the parent commit (PERF.md, NVIDIA H100 80GB HBM3 at
+# 700 W), printed beside this run's; keyed by (kernel, shape). The
+# attention kernels: by CUDA-graph replay (tools/kernel_ab.py, parent and
+# change in turns); ssd_scan: eager calls of the parent's own
+# chip_smoke.py, which its length kept device-bound.
+EARLIER_MS = {("flash_attention", 512): 0.0136,
+              ("flash_attention", 2048): 0.0856,
+              ("ssd_scan", "xlstm"): 0.1358, ("ssd_scan", "mamba"): 0.0883,
+              ("paged_prefill_attention", None): 0.1285,
+              ("paged_prefill_attention", 2): 0.6543,
+              ("paged_decode_attention", None): 0.0710,
+              ("paged_decode_attention", 2048): 0.2579}
 
 
 def _earlier(name, shape, ms: float) -> str:
@@ -250,8 +281,8 @@ def phase_build():
     build.load()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds if build.build_seconds else 0:.2f} s)")
-    for src in ("flash_attention.cu", "ssd_scan.cu"):
-        for k in ptxas_summary(build.compile_log.get(src, "")):
+    for src, text in sorted(build.compile_log.items()):
+        for k in ptxas_summary(text):
             log(f"[build] ptxas {src} {k['kernel']}: {k['registers']} "
                 f"registers, {k['smem']} bytes static smem, spill stores "
                 f"{k['spill_stores']} bytes, spill loads {k['spill_loads']} "
@@ -264,7 +295,8 @@ _TEMPLATE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel of this repo: the function's
-    identifier (the one after its namespace) and its template argument."""
+    identifier (the one after its namespace) and its template arguments
+    (types, ints and bools)."""
     names, i = [], mangled.find("N") + 1
     while i < len(mangled) and mangled[i].isdigit() and len(names) < 2:
         j = i
@@ -275,10 +307,14 @@ def kernel_name(mangled: str) -> str:
         i = j + n
     if len(names) < 2:
         return mangled
-    m = re.match(r"I(?:Li(\d+)E|(f|13__nv_bfloat16))E", mangled[i:])
+    m = re.match(r"I((?:Li-?\d+E|Lb[01]E|f|13__nv_bfloat16)+)E", mangled[i:])
     if not m:
         return names[1]
-    return f"{names[1]}<{m.group(1) or _TEMPLATE_ARGS[m.group(2)]}>"
+    args = [a or ("true" if b == "1" else "false") if not t else
+            _TEMPLATE_ARGS[t] for a, b, t in
+            re.findall(r"Li(-?\d+)E|Lb([01])E|(f|13__nv_bfloat16)",
+                       m.group(1))]
+    return f"{names[1]}<{', '.join(args)}>"
 
 
 def ptxas_summary(log_text: str):
@@ -326,47 +362,64 @@ def _err(out, ref) -> float:
 
 
 def check_decode(gen, rows):
-    b, n = 8, 192
-    for dt in (torch.float32, torch.bfloat16):
-        kp, vp = (x[0] for x in _pool(b * n + 1, dt, gen))
-        pt = _page_table(b, n, b * n + 1, gen)
-        q = torch.randn(b, HQ, D, generator=gen, device="cuda").to(dt)
-        ctx = torch.tensor([1, 17, 100, 513, 2048, 2500, 3000, 16],
-                           dtype=torch.int32, device="cuda")
-        for window in (0, 1000):
-            out = paged_ops.paged_decode_attention(q, kp, vp, pt, ctx,
+    """Long contexts on a wide table (N=192: 12 splits of 256 keys), with
+    and without a window; then the serve phase's own table (N=36 for its
+    576-token contexts: 5 splits of 128 keys), contexts over the range its
+    decode steps reach (513-544), on and beside the splits' edges."""
+    cases = ((192, [1, 17, 100, 513, 2048, 2500, 3000, 16], (0, 1000)),
+             (36, [513, 520, 528, 537, 544, 512, 384, 129], (0,)))
+    b = 8
+    for n, lens, windows in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            kp, vp = (x[0] for x in _pool(b * n + 1, dt, gen))
+            pt = _page_table(b, n, b * n + 1, gen)
+            q = torch.randn(b, HQ, D, generator=gen, device="cuda").to(dt)
+            ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            for window in windows:
+                out = paged_ops.paged_decode_attention(q, kp, vp, pt, ctx,
+                                                       window=window)
+                ref = plain.paged_decode_attention(q, kp, vp, pt, ctx,
                                                    window=window)
-            ref = plain.paged_decode_attention(q, kp, vp, pt, ctx,
-                                               window=window)
-            torch.cuda.synchronize()
-            e = _err(out, ref)
-            rows["paged_decode_attention"].append(e)
-            log(f"[kernels] paged_decode {str(dt)[6:]} B={b} ctx="
-                f"{ctx.tolist()} window={window} max_err={e:.3g}")
-            if not e < TOL[dt]:
-                fail(f"paged_decode {dt} window={window}: {e} >= {TOL[dt]}")
+                torch.cuda.synchronize()
+                e = _err(out, ref)
+                rows["paged_decode_attention"].append(e)
+                log(f"[kernels] paged_decode {str(dt)[6:]} B={b} N={n} ctx="
+                    f"{lens} window={window} max_err={e:.3g}")
+                if not e < TOL[dt]:
+                    fail(f"paged_decode {dt} N={n} window={window}: {e} >= "
+                         f"{TOL[dt]}")
 
 
 def check_prefill(gen, rows):
-    n = 192
-    for dt in (torch.float32, torch.bfloat16):
-        kp, vp = (x[0] for x in _pool(2 * n + 1, dt, gen))
-        pt = _page_table(2, n, 2 * n + 1, gen)
-        q = torch.randn(2, 256, HQ, D, generator=gen, device="cuda").to(dt)
-        q_start = torch.tensor([768, 2048], dtype=torch.int32, device="cuda")
-        ctx = q_start + 256
-        for window in (0, 300):
-            out = paged_ops.paged_prefill_attention(q, kp, vp, pt, q_start,
-                                                    ctx, window=window)
-            ref = plain.paged_prefill_attention(q, kp, vp, pt, q_start, ctx,
-                                                window=window)
-            torch.cuda.synchronize()
-            e = _err(out, ref)
-            rows["paged_prefill_attention"].append(e)
-            log(f"[kernels] paged_prefill {str(dt)[6:]} Sq=256 q_start="
-                f"{q_start.tolist()} window={window} max_err={e:.3g}")
-            if not e < TOL[dt]:
-                fail(f"paged_prefill {dt} window={window}: {e} >= {TOL[dt]}")
+    """Two 256-token chunks deep into wide tables (q_start 768 and 2048,
+    N=192), with and without a window; then the serve phase's chunks of a
+    512-token prompt (one sequence, q_start 0 and 256, N=36)."""
+    cases = ((2, 192, ([768, 2048],), (0, 300)),
+             (1, 36, ([0], [256]), (0,)))
+    for b, n, starts, windows in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            kp, vp = (x[0] for x in _pool(b * n + 1, dt, gen))
+            pt = _page_table(b, n, b * n + 1, gen)
+            q = torch.randn(b, 256, HQ, D, generator=gen,
+                            device="cuda").to(dt)
+            for start in starts:
+                q_start = torch.tensor(start, dtype=torch.int32,
+                                       device="cuda")
+                ctx = q_start + 256
+                for window in windows:
+                    out = paged_ops.paged_prefill_attention(
+                        q, kp, vp, pt, q_start, ctx, window=window)
+                    ref = plain.paged_prefill_attention(
+                        q, kp, vp, pt, q_start, ctx, window=window)
+                    torch.cuda.synchronize()
+                    e = _err(out, ref)
+                    rows["paged_prefill_attention"].append(e)
+                    log(f"[kernels] paged_prefill {str(dt)[6:]} B={b} N={n} "
+                        f"Sq=256 q_start={start} window={window} "
+                        f"max_err={e:.3g}")
+                    if not e < TOL[dt]:
+                        fail(f"paged_prefill {dt} N={n} q_start={start} "
+                             f"window={window}: {e} >= {TOL[dt]}")
 
 
 def check_flash(gen, rows):
@@ -393,8 +446,13 @@ def time_kernels(gen):
     """Each kernel at the shapes phase 3 gives it, in bf16: decode of the
     8-request batch mid-generation (ctx 528), the second 256-token chunk
     of a 512-token prompt, and the monolithic prefill of a 512-token
-    prompt. Paged inputs rotate over 32 layers' pools, as the decode step
-    does, so the L2 cache does not hold them between launches."""
+    prompt; then, for the record, decode at ctx 2048 and prefill at the
+    check's shape. Paged inputs rotate over the layers' pools, as the
+    decode step does, so the L2 cache does not hold them between
+    launches. Times are of calls replayed from a CUDA graph (the host's
+    cost of an eager call, printed beside, is longer than these kernels).
+    Paged decode's time covers both of its launches (the splits and their
+    combine); the profiler splits it between them."""
     dt, layers = torch.bfloat16, 32
     out = {}
     # paged decode: B=8, ctx 528, pool as the serve phase lays it out
@@ -407,16 +465,19 @@ def time_kernels(gen):
 
     def dec(fn):
         def call():
-            i = next(it) % layers
+            i = next(it) % kp.shape[0]
             return fn(q, kp[i], vp[i], pt, ctx)
         return call
-    ms = time_ms(dec(paged_ops.paged_decode_attention), 200)
+    eager_ms = {"paged_decode_attention":
+                time_ms(dec(paged_ops.paged_decode_attention), 200)}
+    ms = device_ms(dec(paged_ops.paged_decode_attention), layers, 20)
     plain_ms = time_ms(dec(plain.paged_decode_attention), 10)
     keys = 528 * b
     nbytes = (2 * q.numel() + 2 * keys * HKV * D) * 2 + pt.numel() * 4 + b * 4
     out["paged_decode_attention"] = (
         ms, plain_ms, *bound(nbytes, 4 * HQ * D * keys), None,
         "B=8 ctx=528 bf16")
+    decode_parts = device_us(dec(paged_ops.paged_decode_attention))
     # paged prefill: chunk 256 at q_start 256 of a 512-token prompt
     n = 40
     kp, vp = _pool(n + 1, dt, gen, layers)
@@ -427,10 +488,12 @@ def time_kernels(gen):
 
     def pre(fn):
         def call():
-            i = next(it) % layers
+            i = next(it) % kp.shape[0]
             return fn(q, kp[i], vp[i], pt, q_start, ctx)
         return call
-    ms = time_ms(pre(paged_ops.paged_prefill_attention), 100)
+    eager_ms["paged_prefill_attention"] = time_ms(
+        pre(paged_ops.paged_prefill_attention), 100)
+    ms = device_ms(pre(paged_ops.paged_prefill_attention), layers, 20)
     plain_ms = time_ms(pre(plain.paged_prefill_attention), 10)
     seen = sum(visible(256 + i, 512, 0) for i in range(256))
     nbytes = (2 * q.numel() + 2 * 512 * HKV * D) * 2 + pt.numel() * 4 + 8
@@ -438,21 +501,41 @@ def time_kernels(gen):
         ms, plain_ms, *bound(nbytes, 4 * HQ * D * seen), None,
         "Sq=256 q_start=256 ctx=512 bf16")
     for name, (ms, pms, bms, by, lib, shape) in out.items():
-        log(f"[kernels] time {name} ({shape}): {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), library "
+        log(f"[kernels] time {name} ({shape}): {ms:.4f} ms (graph replay; "
+            f"eager calls {eager_ms[name]:.4f} ms), plain {pms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), {bms / ms:.3f} of it, library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}"
             + _earlier(name, None, ms))
+    log("[kernels] paged_decode_attention (B=8 ctx=528) device time by "
+        "launch: " + ", ".join(f"{k} {us:.2f} us" for k, us in decode_parts))
     # the long-context shapes of the checks, for the record
     b, n, layers = 8, 192, 4
     kp, vp = _pool(b * n + 1, dt, gen, layers)
     pt = _page_table(b, n, b * n + 1, gen)
     q = torch.randn(b, HQ, D, generator=gen, device="cuda").to(dt)
     ctx = torch.full((b,), 2048, dtype=torch.int32, device="cuda")
-    ms = time_ms(dec(paged_ops.paged_decode_attention), 50)
+    ms = device_ms(dec(paged_ops.paged_decode_attention), layers, 20)
     bms, by = bound((2 * q.numel() + 2 * 2048 * b * HKV * D) * 2,
                     4 * HQ * D * 2048 * b)
+    parts = device_us(dec(paged_ops.paged_decode_attention))
     log(f"[kernels] time paged_decode_attention (B=8 ctx=2048 bf16): "
-        f"{ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.3f} of it"
+        + _earlier("paged_decode_attention", 2048, ms) + "; by launch: "
+        + ", ".join(f"{k} {us:.2f} us" for k, us in parts))
+    n = 192
+    kp, vp = _pool(2 * n + 1, dt, gen, layers)
+    pt = _page_table(2, n, 2 * n + 1, gen)
+    q = torch.randn(2, 256, HQ, D, generator=gen, device="cuda").to(dt)
+    q_start = torch.tensor([768, 2048], dtype=torch.int32, device="cuda")
+    ctx = q_start + 256
+    ms = device_ms(pre(paged_ops.paged_prefill_attention), layers, 20)
+    seen = sum(visible(s0 + i, s0 + 256, 0) for s0 in (768, 2048)
+               for i in range(256))
+    bms, by = bound((2 * q.numel() + 2 * (1024 + 2304) * HKV * D) * 2,
+                    4 * HQ * D * seen)
+    log(f"[kernels] time paged_prefill_attention (B=2 Sq=256 q_start="
+        f"[768, 2048] bf16): {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.3f} of it" + _earlier("paged_prefill_attention", 2, ms))
     out["flash_attention"] = time_flash(gen)
     return out
 
@@ -460,25 +543,35 @@ def time_kernels(gen):
 def time_flash(gen):
     """Flash at the monolithic prefill of one 512-token prompt (the serve
     phase's shape) and at S=2048, in turns with one PyTorch SDPA call on the
-    same inputs; the plain version once; the host cost of the tensor maps
-    each call encodes."""
+    same inputs, both replayed from CUDA graphs; the eager call's time; the
+    plain version once; the host cost of the tensor maps each call
+    encodes."""
     row = None
     for s in (512, 2048):
         q, k, v = (torch.randn(1, s, h, D, generator=gen, device="cuda")
                    .to(torch.bfloat16) for h in (HQ, HKV, HKV))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        reps = 100 if s == 512 else 30
-        ms, turns = time_turns({
-            "kernel": lambda: flash_ops.flash_attention(q, k, v),
-            "sdpa": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)}, reps)
+        calls = 20 if s == 512 else 10
+
+        def kernel():
+            return flash_ops.flash_attention(q, k, v)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        ms, turns = time_turns({"kernel": graphed(kernel, calls),
+                                "sdpa": graphed(sdpa, calls)}, 10)
+        ms = {n: t / calls for n, t in ms.items()}
+        turns = {n: [t / calls for t in ts] for n, ts in turns.items()}
+        eager = time_ms(kernel, 100 if s == 512 else 30)
         plain_ms = time_ms(lambda: plain.flash_attention(q, k, v), 5)
         nbytes, flops = attention_work(s, s, HQ, HKV, D)
         bms, by = bound(nbytes, flops)
         enc_ns = flash_kernel.encode_ns(q, k, v)
-        host_us = host_us_per_call(lambda: flash_ops.flash_attention(q, k, v))
+        host_us = host_us_per_call(kernel)
         log(f"[kernels] time flash_attention (B=1 S={s} causal bf16): "
-            f"{ms['kernel']:.4f} ms (turns {_fmt(turns['kernel'])}), SDPA "
+            f"{ms['kernel']:.4f} ms (graph replay, turns "
+            f"{_fmt(turns['kernel'])}; eager calls {eager:.4f} ms), SDPA "
             f"{ms['sdpa']:.4f} ms (turns {_fmt(turns['sdpa'])}), kernel/SDPA "
             f"{ms['kernel'] / ms['sdpa']:.3f}; plain {plain_ms:.4f} ms; "
             f"bound {bms:.4f} ms ({by}), {bms / ms['kernel']:.3f} of it"
@@ -612,6 +705,13 @@ def time_ssd(gen):
     return out
 
 
+def _kernel_key(key: str) -> str:
+    """A profiler kernel name without its namespace, template arguments
+    and parameters."""
+    key = key.replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", key)[0].split()[-1].split("::")[-1][-40:]
+
+
 def device_us(fn, calls: int = 10):
     """(kernel name, device microseconds per call) of the kernels ``fn``
     launches, from the profiler."""
@@ -621,8 +721,7 @@ def device_us(fn, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return [(e.key.split("(")[0].split("<")[0][-40:],
-             e.self_device_time_total / calls)
+    return [(_kernel_key(e.key), e.self_device_time_total / calls)
             for e in prof.key_averages() if e.self_device_time_total > 0]
 
 

@@ -29,8 +29,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, sizes c_int
 SIGNATURES = {
-    "rt_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
-    "rt_paged_prefill_attention": [_P] * 7 + [_I] * 9 + [_P],
+    "rt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
+    "rt_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
     "rt_ssd_scan": [_P] * 9 + [_I] * 6 + [_P],
     "rt_flash_encode_ns": [_P] * 3 + [_I] * 7,

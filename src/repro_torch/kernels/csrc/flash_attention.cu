@@ -23,16 +23,11 @@
 //    (neither waits for the other). Keys past seq_k and head dims
 //    past D arrive as zeros (D is padded to 64-column swizzle tiles in
 //    shared memory only);
-//  - S = Q K^T is wgmma with Q and K from shared memory (128-byte swizzle,
-//    K-major), f32 accumulators. The masked online softmax runs on the
-//    accumulator fragments in registers (row max and sum across the quad
-//    by shuffles); P is rounded to bf16 in registers and is the register A
-//    operand of the second wgmma, O += P V, with V read through a
-//    transposed (MN-major) descriptor. O stays in registers for the whole
-//    key loop and is written once, divided by max(l, 1e-30);
-//  - per key tile, S of tile n and O += P V of tile n - 1 are issued
-//    together, so the softmax of tile n runs while the tensor cores do the
-//    P V product (P of tile n - 1 stays in its registers until then);
+//  - each warpgroup runs the wgmma tile body of attention_wgmma.cuh
+//    (shared with paged prefill): S = Q K^T and O += P V as wgmma, the
+//    masked online softmax on the accumulator fragments, P in registers,
+//    S of tile n issued beside P V of tile n - 1, O in registers until one
+//    final write divided by max(l, 1e-30);
 //  - registers: a producer warpgroup with setmaxnreg (40 registers to it,
 //    232 to each consumer, in a block of 384 threads) left ptxas at the
 //    launch bound's 168 registers for the whole kernel, spilling the
@@ -54,6 +49,7 @@
 #include <chrono>
 
 #include "attention_core.cuh"
+#include "attention_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -61,8 +57,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------ f32: CUDA cores
-constexpr int ROWS = rt::TC_ROWS;   // query positions per block
-constexpr int THREADS = rt::TC_THREADS;
+constexpr int ROWS = 64;       // query positions per block
+constexpr int THREADS = 256;
 
 struct FlashRows {   // query positions [r0, r0 + ROWS) of head hq, batch b
   const float* q;    // [B, Sq, Hq, D]
@@ -114,11 +110,6 @@ constexpr int BM = 128;          // query rows per block (two warpgroups)
 constexpr int WG_THREADS = 128;
 constexpr int BLOCK_THREADS = 2 * WG_THREADS;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float NEG = -1e30f;    // initial running max (finite, as in Pallas)
-
-// Key tile: 128 keys while O fits beside a 128-wide S (head dim <= 128),
-// else 64; three stages where they fit in shared memory, else two. NC =
-// ceil(D / 64) swizzle tiles of 64 head-dim columns.
 template <int NC> struct Tiles {
   static constexpr int KT = NC <= 2 ? 128 : 64;
   static constexpr int STAGES = NC <= 2 ? 3 : 2;
@@ -129,113 +120,49 @@ template <int NC> struct Tiles {
   static constexpr size_t SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// Which keys a warpgroup's rows see, for the tiles that need a mask: a
-// thread holds rows row_a and row_a + 8 of the accumulator fragments.
-struct Mask {
-  int Sk, causal, window, w0, row_a, quad;
-  // every key of tile [t0, t0 + kt) is seen by all 64 rows
-  __device__ bool open(int t0, int kt) const {
-    return t0 + kt <= Sk && (!causal || t0 + kt - 1 <= w0) &&
-           (window <= 0 || t0 >= w0 + 64 - window);
+// The TMA ring of one block: tile it in stage it % STAGES, filled by one
+// thread, with a full mbarrier per stage and a count of the warpgroups done
+// with it: the second warpgroup to free the stage of tile n loads tile
+// n + STAGES into it (neither waits for the other). Every warpgroup frees
+// every tile once, in order.
+template <int NC>
+struct FlashRing {
+  using TL = Tiles<NC>;
+  static constexpr int KT = TL::KT, STAGES = TL::STAGES;
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
+  bf16* ks;
+  bf16* vs;
+  uint64_t* full;
+  int* freed;
+  int hkv, kv_lo, b, n_tiles;
+  __device__ void load(int n) const {
+    const int s = n % STAGES;
+    hp::mbar_expect_tx(&full[s], (uint32_t)(2 * TL::KV_BYTES));
+    for (int c = 0; c < NC; ++c) {
+      const size_t at = ((size_t)s * NC + c) * KT * 64;
+      hp::tma_load_4d(ks + at, tk, &full[s], 64 * c, hkv, kv_lo + n * KT, b);
+      hp::tma_load_4d(vs + at, tv, &full[s], 64 * c, hkv, kv_lo + n * KT, b);
+    }
   }
-  __device__ bool seen(int i, int j) const {
-    return j < Sk && (!causal || j <= i) && (window <= 0 || i - j < window);
+  __device__ void wait(int it) const {
+    hp::mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+  }
+  // one thread of the warpgroup, after the warpgroup's wgmma wait
+  __device__ void release(int it) const {
+    if (threadIdx.x % WG_THREADS == 0 &&
+        atomicAdd(&freed[it % STAGES], 1) == 1) {
+      freed[it % STAGES] = 0;
+      if (it + STAGES < n_tiles) load(it + STAGES);
+    }
+  }
+  __device__ const bf16* k(int it) const {
+    return ks + (it % STAGES) * NC * KT * 64;
+  }
+  __device__ const bf16* v(int it) const {
+    return vs + (it % STAGES) * NC * KT * 64;
   }
 };
-
-// S = Q K^T of one key tile: NC x 4 k-steps of 16 head dims.
-template <int NC, int KT>
-__device__ __forceinline__ void issue_qk(float (&sc)[KT / 2], const bf16* qw,
-                                         const bf16* kt) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da =
-          hp::desc_sw128(qw + c * BM * 64 + kk * 16, 16, 1024);
-      const uint64_t db = hp::desc_sw128(kt + c * KT * 64 + kk * 16, 16, 1024);
-      if constexpr (KT == 128)
-        hp::wgmma_m64n128k16_ss(sc, da, db, c | kk);
-      else
-        hp::wgmma_m64n64k16_ss(sc, da, db, c | kk);
-    }
-}
-
-// O += P V of one key tile: P from registers, 16 keys a k-step, V through
-// the transposed descriptor, one 64-column block of O per instruction.
-template <int NC, int KT>
-__device__ __forceinline__ void issue_pv(float (&o)[NC][32],
-                                         const uint32_t (&pa)[KT / 16][4],
-                                         const bf16* vt) {
-#pragma unroll
-  for (int k16 = 0; k16 < KT / 16; ++k16)
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      hp::wgmma_m64n64k16_rs_tb(
-          o[c], pa[k16],
-          hp::desc_sw128(vt + (c * KT + 16 * k16) * 64, KT * 128, 1024));
-}
-
-template <int NC>
-__device__ __forceinline__ void fence_o(float (&o)[NC][32]) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c) hp::fence_regs(o[c]);
-}
-
-// The masked online softmax of one tile on the accumulator fragments, in
-// the log2 domain: scores become probabilities in place, m and l advance,
-// alpha is the factor O must be rescaled by. Row max and row sum go across
-// the quad that shares a row; l stays a per-thread partial sum until the
-// end.
-template <int KT>
-__device__ __forceinline__ void online_softmax(float (&sc)[KT / 2],
-                                               float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2],
-                                               const Mask& mask, int t0,
-                                               float scale_log2) {
-  if (!mask.open(t0, KT)) {
-#pragma unroll
-    for (int r = 0; r < KT / 2; ++r) {
-      const int j = t0 + 8 * (r / 4) + 2 * mask.quad + (r & 1);
-      if (!mask.seen(mask.row_a + 8 * ((r >> 1) & 1), j)) sc[r] = -INFINITY;
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int r = 2 * h; r < KT / 2; r += 4)
-      mx = fmaxf(mx, fmaxf(sc[r], sc[r + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m[h], mx * scale_log2);
-    alpha[h] = hp::exp2_approx(m[h] - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int r = 2 * h; r < KT / 2; r += 4) {
-      sc[r] = hp::exp2_approx(fmaf(sc[r], scale_log2, -m_new));
-      sc[r + 1] = hp::exp2_approx(fmaf(sc[r + 1], scale_log2, -m_new));
-      sum += sc[r] + sc[r + 1];
-    }
-    l[h] = l[h] * alpha[h] + sum;
-    m[h] = m_new;
-  }
-}
-
-// P to bf16 A fragments: the accumulator layout of 16 keys is the A
-// operand's layout, two values a register.
-template <int KT>
-__device__ __forceinline__ void to_bf16_frags(const float (&sc)[KT / 2],
-                                              uint32_t (&pa)[KT / 16][4]) {
-#pragma unroll
-  for (int k16 = 0; k16 < KT / 16; ++k16)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      __nv_bfloat162 p2 = __floats2bfloat162_rn(sc[8 * k16 + 2 * u],
-                                                sc[8 * k16 + 2 * u + 1]);
-      pa[k16][u] = *reinterpret_cast<uint32_t*>(&p2);
-    }
-}
 
 template <int NC>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
@@ -279,22 +206,13 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  // Key tile n into its stage (free: both warpgroups are done with the
-  // tile STAGES before it), by one thread.
-  auto load = [&](int n) {
-    const int s = n % STAGES;
-    hp::mbar_expect_tx(&full[s], (uint32_t)(2 * TL::KV_BYTES));
-    for (int c = 0; c < NC; ++c) {
-      const size_t at = ((size_t)s * NC + c) * KT * 64;
-      hp::tma_load_4d(ks + at, &tk, &full[s], 64 * c, hkv, kv_lo + n * KT, b);
-      hp::tma_load_4d(vs + at, &tv, &full[s], 64 * c, hkv, kv_lo + n * KT, b);
-    }
-  };
+  const FlashRing<NC> ring{&tk, &tv, ks, vs, full, freed, hkv, kv_lo, b,
+                           n_tiles};
   if (threadIdx.x == 0) {
     hp::mbar_expect_tx(qbar, (uint32_t)TL::Q_BYTES);
     for (int c = 0; c < NC; ++c)
       hp::tma_load_4d(qs + c * BM * 64, &tq, qbar, 64 * c, hq, r0, b);
-    for (int n = 0; n < min(STAGES, n_tiles); ++n) load(n);
+    for (int n = 0; n < min(STAGES, n_tiles); ++n) ring.load(n);
   }
 
   const int cw = threadIdx.x / WG_THREADS;       // warpgroup: 0 or 1
@@ -310,109 +228,26 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     it_lo = min(n_tiles, (lo - kv_lo) / KT);
     it_hi = max(it_lo, min(n_tiles, (hi - kv_lo + KT - 1) / KT));
   }
-  const Mask mask{Sk, causal, window, w0, row_a, quad};
-  auto wait_full = [&](int it) {
-    hp::mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
-  };
-  // A warpgroup frees tile it's stage once its products have read it (one
-  // thread, after the warpgroup's wgmma wait); the second of the two to do
-  // so loads tile it + STAGES into the stage. Neither waits for the other.
-  // Every warpgroup frees every tile once, in order.
-  auto release = [&](int it) {
-    if (threadIdx.x % WG_THREADS == 0 &&
-        atomicAdd(&freed[it % STAGES], 1) == 1) {
-      freed[it % STAGES] = 0;
-      if (it + STAGES < n_tiles) load(it + STAGES);
-    }
-  };
-  auto k_tile = [&](int it) { return ks + (it % STAGES) * NC * KT * 64; };
-  auto v_tile = [&](int it) { return vs + (it % STAGES) * NC * KT * 64; };
-  const bf16* qw = qs + 64 * cw * 64;
-
-  float o[NC][32];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int r = 0; r < 32; ++r) o[c][r] = 0.f;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
-  float sc[KT / 2];
-  uint32_t pa[KT / 16][4];
+  const aw::Mask mask{Sk,   causal, window, w0, w0 + 63,
+                      quad, row_a,  row_a + 8};
 
   hp::mbar_wait(qbar, 0);
   for (int it = 0; it < it_lo; ++it) {   // tiles before the window
-    wait_full(it);
-    release(it);
+    ring.wait(it);
+    ring.release(it);
   }
-  if (it_lo < it_hi) {
-    // S of the first tile, then per tile: S of tile it and O += P V of
-    // tile it - 1 in flight together, the softmax of tile it running
-    // while the tensor cores do the P V product
-    wait_full(it_lo);
-    hp::fence_regs(sc);
-    hp::wgmma_fence();
-    issue_qk<NC, KT>(sc, qw, k_tile(it_lo));
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();
-    hp::fence_regs(sc);
-    online_softmax<KT>(sc, m, l, alpha, mask, kv_lo + it_lo * KT,
-                       scale_log2);
-    to_bf16_frags<KT>(sc, pa);
-    for (int it = it_lo + 1; it < it_hi; ++it) {
-      wait_full(it);
-      hp::fence_regs(sc);
-      fence_o<NC>(o);
-      hp::wgmma_fence();
-      issue_qk<NC, KT>(sc, qw, k_tile(it));
-      hp::wgmma_commit();
-      issue_pv<NC, KT>(o, pa, v_tile(it - 1));
-      hp::wgmma_commit();
-      hp::wgmma_wait<1>();
-      hp::fence_regs(sc);
-      online_softmax<KT>(sc, m, l, alpha, mask, kv_lo + it * KT,
-                         scale_log2);
-      hp::wgmma_wait<0>();
-      fence_o<NC>(o);
-      release(it - 1);
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int r = 0; r < 32; ++r) o[c][r] *= alpha[(r >> 1) & 1];
-      to_bf16_frags<KT>(sc, pa);
-    }
-    fence_o<NC>(o);
-    hp::wgmma_fence();
-    issue_pv<NC, KT>(o, pa, v_tile(it_hi - 1));
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();
-    fence_o<NC>(o);
-    release(it_hi - 1);
-  }
+  float o[NC][32], l[2];
+  aw::attend_tiles<NC, KT, BM>(qs + 64 * cw * 64, ring, it_lo, it_hi, kv_lo,
+                               mask, scale_log2, o, l);
   for (int it = it_hi; it < n_tiles; ++it) {   // tiles past the diagonal
-    wait_full(it);
-    release(it);
+    ring.wait(it);
+    ring.release(it);
   }
-
-  // O / l, rows below Sq and head dims below D only
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float lt = l[h];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+  // O / l, rows below Sq only
+  aw::store_rows<NC>(o, l, quad, D, [&](int h) -> bf16* {
     const int i = row_a + 8 * h;
-    if (i >= Sq) continue;
-    const float inv = 1.f / fmaxf(lt, 1e-30f);
-    bf16* orow = out + (((size_t)b * Sq + i) * Hq + hq) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const int col = 64 * c + 8 * g + 2 * quad;
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(o[c][4 * g + 2 * h] * inv,
-                                    o[c][4 * g + 2 * h + 1] * inv);
-      }
-  }
+    return i < Sq ? out + (((size_t)b * Sq + i) * Hq + hq) * D : nullptr;
+  });
 }
 
 // The three tensor maps of one call (Q with BM-row boxes, K and V with

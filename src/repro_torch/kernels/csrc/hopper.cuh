@@ -3,10 +3,12 @@
 // their shared-memory descriptors. Only what the kernels of this directory
 // use; each wrapper is one or a few instructions.
 //
-// Shared-memory tiles that wgmma reads are written by TMA with the 128-byte
-// swizzle: a tile of R rows x 64 bf16 values (128 bytes a row) whose base
-// is 1024-byte aligned, 8-row groups 1024 bytes apart. A wider row (a head
-// dim above 64) is held as several such tiles, one per 64 columns.
+// Shared-memory tiles that wgmma reads are written with the 128-byte
+// swizzle, by TMA or by cp.async through `sw128`: a tile of R rows x 64 bf16
+// values (128 bytes a row) whose base is 1024-byte aligned, 8-row groups
+// 1024 bytes apart, the 16-byte chunk j of row r stored at chunk j ^ (r % 8).
+// A wider row (a head dim above 64) is held as several such tiles, one per
+// 64 columns.
 #pragma once
 
 #include <cuda.h>
@@ -35,6 +37,12 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// One plain arrival.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
 }
 
 // Waits until the phase of parity `parity` has completed. A fresh barrier
@@ -68,6 +76,49 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// -------------------------------------------------------------- cp.async
+// A 16-byte copy from device to shared memory; with `fill` false nothing is
+// read and the 16 bytes are zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed (the barrier's count includes it: init it with the thread count).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+// Makes shared memory written through the generic proxy (cp.async, st)
+// visible to the async proxy (wgmma) for this thread's later operations.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1 to 15; 0 is __syncthreads) among `threads` threads,
+// a multiple of 32: one warpgroup's barrier while other warps run on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Element offset of (row, col) in a 128-byte-swizzled tile of 64 columns.
+__device__ __forceinline__ int sw128(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
 }
 
 // -------------------------------------------------------------- exp2
@@ -205,6 +256,26 @@ inline bool encode_bshd(CUtensorMap* map, const void* base, int B, int S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 paged pool [P, page, H, D] as a 4-D tensor map (dims D, H, page,
+// P) whose box is 64 head-dim values x one head x `rows` slots of one page,
+// with the 128-byte swizzle. Head dims past D, and a page coordinate past P
+// (a page no row may read), read as zeros.
+inline bool encode_pool(CUtensorMap* map, const void* base, int P, int page,
+                        int H, int D, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)page,
+                              (cuuint64_t)P};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)page * H * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),

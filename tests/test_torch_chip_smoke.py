@@ -145,3 +145,28 @@ def test_ptxas_summary_reads_registers_spills_and_serialisation():
         {"kernel": "ssd_outputs", "registers": 64, "smem": 0,
          "spill_stores": 0, "spill_loads": 0, "wgmma_serialized": False}]
     assert chip_smoke.ptxas_summary("") == []
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN48_GLOBAL__N__22431cb3_15_paged_decode_cu_9313802a12decode_splitI13"
+     "__nv_bfloat16Li4ELi16ELi1EEEvPKT_S4_S4_PKiS6_PS2_Pfiiiiiiif",
+     "decode_split<bf16, 4, 16, 1>"),
+    ("_ZN49_GLOBAL__N__f17dc337_16_paged_prefill_cu_95b0c20311paged_wgmmaILi2"
+     "ELb1EEEv14CUtensorMap_stS1_PK13__nv_bfloat16S4_S4_PKiS6_S6_PS2_iiiiii"
+     "iiif", "paged_wgmma<2, true>"),
+    ("_ZN48_GLOBAL__N__22431cb3_15_paged_decode_cu_9313802a14decode_combineI"
+     "fEEvPKfPT_ii", "decode_combine<float>"),
+    ("_ZN49_GLOBAL__N__f17dc337_16_paged_prefill_cu_95b0c2039paged_f32EPKfS1"
+     "_S1_PKiS3_S3_Pfiiiiiiif", "paged_f32")])
+def test_kernel_name_reads_every_template_argument(mangled, name):
+    assert chip_smoke.kernel_name(mangled) == name
+
+
+@pytest.mark.parametrize("key,name", [
+    ("void (anonymous namespace)::decode_split<__nv_bfloat16, 4, 16, 1>("
+     "__nv_bfloat16 const*, int)", "decode_split"),
+    ("void (anonymous namespace)::ssd_outputs(float const*, "
+     "(anonymous namespace)::Shape)", "ssd_outputs"),
+    ("ssd_states", "ssd_states")])
+def test_profiler_kernel_keys_lose_namespace_and_arguments(key, name):
+    assert chip_smoke._kernel_key(key) == name

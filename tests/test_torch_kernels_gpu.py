@@ -107,6 +107,126 @@ def test_paged_prefill_kernel_matches_plain(cuda, dt):
     assert kernels.launch_counts()["paged_prefill_attention"] > len(PAGED)
 
 
+def _decode_case(rng, dt, dev, b, n, ctx, page=16, hq=32, hkv=8, d=128):
+    """Serve-shaped paged decode inputs: b sequences of n pages each in a
+    pool of b * n + 1 pages, context lengths ``ctx``."""
+    q = _randn(rng, (b, hq, d), dt, dev)
+    kp = _randn(rng, (b * n + 1, page, hkv, d), dt, dev)
+    vp = _randn(rng, (b * n + 1, page, hkv, d), dt, dev)
+    pt = torch.from_numpy(rng.permutation(b * n + 1)[:b * n].reshape(b, n)
+                          .astype(np.int32)).to(dev)
+    return q, kp, vp, pt, torch.tensor(ctx, dtype=torch.int32, device=dev)
+
+
+# (b, n, context lengths, window): the serve shape at ctx 528 and 2048 (5
+# and 12 splits of 128 and 256 keys); contexts that end inside a split, on
+# a split's last key and on its first; a window that skips whole splits
+DECODE_SERVE = [(8, 40, [528] * 8, 0), (8, 192, [2048] * 8, 0),
+                (8, 40, [1, 100, 129, 255, 300, 333, 500, 640], 0),
+                (8, 40, [128, 256, 384, 512, 127, 257, 383, 513], 0),
+                (4, 192, [2048, 3072, 1500, 700], 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_SERVE)
+def test_paged_decode_splits_match_plain(cuda, dt, case):
+    from repro_torch.kernels.paged_attention.kernel import decode_split_plan
+    b, n, ctx, window = case
+    assert decode_split_plan(b, 8, n, 16, 128)[0] > 1
+    args = _decode_case(np.random.default_rng(7), dt, cuda, b, n, ctx)
+    out = paged_ops.paged_decode_attention(*args, window=window)
+    ref = plain.paged_decode_attention(*args, window=window)
+    assert out.dtype == dt and out.shape == ref.shape
+    assert _err(out, ref) < TOL[dt], case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_paged_decode_row_without_keys_is_zero(cuda, dt):
+    """ctx = 0: the kernel returns 0, as the Pallas kernel does; the plain
+    version returns the mean of V there (ROADMAP queue 3), so that row is
+    compared with 0 and the others with the plain version."""
+    args = _decode_case(np.random.default_rng(8), dt, cuda, 4, 40,
+                        [0, 528, 0, 17])
+    out = paged_ops.paged_decode_attention(*args)
+    ref = plain.paged_decode_attention(*args)
+    assert torch.equal(out[0::2], torch.zeros_like(out[0::2]))
+    assert _err(out[1::2], ref[1::2]) < TOL[dt]
+
+
+@pytest.mark.gpu
+def test_paged_decode_is_bitwise_reproducible(cuda):
+    args = _decode_case(np.random.default_rng(9), torch.bfloat16, cuda, 8,
+                        192, [2048, 17, 700, 3000, 1, 129, 2500, 1024])
+    a = paged_ops.paged_decode_attention(*args, window=1000)
+    b = paged_ops.paged_decode_attention(*args, window=1000)
+    assert torch.equal(a, b)
+
+
+# prefill: (Sq, Hq, Hkv, page): chunks off the 64-row tile with G = 1, 2
+# and 8 at pages 4 and 8 (cp.async loads) and 16 (TMA page boxes)
+PREFILL_ODD = [(70, 4, 4, 4), (70, 4, 4, 8), (70, 4, 4, 16), (37, 8, 4, 4),
+               (37, 8, 4, 8), (37, 8, 4, 16), (100, 16, 2, 4),
+               (100, 16, 2, 8), (100, 16, 2, 16), (1, 8, 1, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PREFILL_ODD)
+def test_paged_prefill_group_sizes_match_plain(cuda, dt, case):
+    sq, hq, hkv, page = case
+    rng = np.random.default_rng(10)
+    b, d, n = 2, 128, 64
+    kp = _randn(rng, (b * n + 1, page, hkv, d), dt, cuda)
+    vp = _randn(rng, (b * n + 1, page, hkv, d), dt, cuda)
+    pt = torch.from_numpy(rng.permutation(b * n + 1)[:b * n].reshape(b, n)
+                          .astype(np.int32)).to(cuda)
+    q = _randn(rng, (b, sq, hq, d), dt, cuda)
+    start = torch.tensor([n * page - sq, 5], dtype=torch.int32, device=cuda)
+    ctx = start + sq
+    for window in (0, 50):
+        out = paged_ops.paged_prefill_attention(q, kp, vp, pt, start, ctx,
+                                                window=window)
+        ref = plain.paged_prefill_attention(q, kp, vp, pt, start, ctx,
+                                            window=window)
+        assert _err(out, ref) < TOL[dt], (case, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_kernels_ignore_stale_slots_past_the_context(cuda, page):
+    """Slots at or past a sequence's context may hold what a freed page
+    left: with NaN there, both kernels return what they return with zeros
+    there (page 8: cp.async loads; page 16: TMA page boxes)."""
+    rng = np.random.default_rng(11)
+    dt, b, n, hq, hkv, d, sq = torch.bfloat16, 2, 24, 32, 8, 128, 32
+    kp = _randn(rng, (b * n + 1, page, hkv, d), dt, cuda)
+    vp = _randn(rng, (b * n + 1, page, hkv, d), dt, cuda)
+    pt = torch.from_numpy(rng.permutation(b * n + 1)[:b * n].reshape(b, n)
+                          .astype(np.int32)).to(cuda)
+    ctx = [n * page - 5, 9 * page + 3]          # both end inside a page
+    stale_k, stale_v = kp.clone(), vp.clone()
+    for i, c in enumerate(ctx):
+        for j in range(n):
+            lo = max(0, c - j * page)
+            if lo < page:
+                p = int(pt[i, j])
+                stale_k[p, lo:], stale_v[p, lo:] = float("nan"), float("nan")
+                kp[p, lo:], vp[p, lo:] = 0, 0
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    q = _randn(rng, (b, hq, d), dt, cuda)
+    out = paged_ops.paged_decode_attention(q, stale_k, stale_v, pt, ctx_t)
+    ref = plain.paged_decode_attention(q, kp, vp, pt, ctx_t)
+    assert torch.isfinite(out).all() and _err(out, ref) < TOL[dt]
+    q = _randn(rng, (b, sq, hq, d), dt, cuda)
+    start = ctx_t - sq
+    out = paged_ops.paged_prefill_attention(q, stale_k, stale_v, pt, start,
+                                            ctx_t)
+    ref = plain.paged_prefill_attention(q, kp, vp, pt, start, ctx_t)
+    assert torch.isfinite(out).all() and _err(out, ref) < TOL[dt]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, dt):
