@@ -13,15 +13,19 @@ no CUDA device or any phase fails. Phases:
    llama3-8b head shapes (Hq 32, Hkv 8, D 128, page 16), f32 within 1e-4
    and bf16 within 2e-2: paged decode and prefill on wide page tables
    (N 192) and on phase 3's own (N 36: decode at contexts 513-544 and on
-   the splits' edges, prefill at its two 256-token chunks); ssd_scan
-   against its plain version at xLSTM width (T 512, H 4, dk 512, dv 513,
-   bf16 q/k), at a ragged T 509 and at Mamba's widths (H 128, dk 16,
-   dv 64), within 1e-4 * max(1, max|plain|) for y and the final state,
-   and the state continuation (kernel over T, one plain decode step,
-   against the kernel over T + 1); each kernel's time (CUDA events; the
-   attention kernels' calls replayed from CUDA graphs), the plain
-   version's time, the least time the card could take (bound) and, for
-   flash, the time of one PyTorch SDPA call as a yardstick; paged decode's time is that of its two launches (the KV
+   the splits' edges, prefill at its two 256-token chunks); the three
+   attention kernels at phase 7's moonshot shape (Hq = Hkv = 16, G = 1)
+   and at phase 9's danube shapes (D 120, with and without the 4096-token
+   window, a 4608-token prompt), there also row by row within 1e-4 (f32)
+   and 2e-2 (bf16) of the row's largest value; ssd_scan against its plain version at
+   xLSTM width (T 512, H 4, dk 512, dv 513, bf16 q/k), at a ragged T 509
+   and at Mamba's widths (H 128, dk 16, dv 64), within 1e-4 * max(1,
+   max|plain|) for y and the final state, and the state continuation
+   (kernel over T, one plain decode step, against the kernel over T + 1);
+   each kernel's time (CUDA events; the attention kernels' calls replayed
+   from CUDA graphs), the plain version's time, the least time the card
+   could take (bound) and, for flash, the time of one causal PyTorch SDPA
+   call as a yardstick; paged decode's time is that of its two launches (the KV
    splits and their combine), also split between them by the profiler,
    and at ctx 2048; paged prefill also at the check's shape (two 256-token
    chunks at q_start 768 and 2048). The build prints each kernel's
@@ -44,7 +48,22 @@ no CUDA device or any phase fails. Phases:
 6. xlstm remap: two full-depth xlstm-1.3b tenants, a small KV budget (the
    controller remaps repeats of one tenant, which then streams them from
    pinned host memory) and an ample one; identical tokens.
-7. the kernels line (JSON) and, last, the result line (JSON).
+7. moe: moonshot-v1-16b-a3b at full width and depth (48 layers, 64 experts
+   top-6, bf16) as a paged tenant, served as in phase 3 (monolithic and
+   256-token chunked prefill); one MoE layer on 512 tokens against the
+   same layer in f32 on the CPU; a profile of 3 decode steps against the
+   weight-read bound.
+8. hybrid: jamba-v0.1-52b at full width cut to 16 of its 32 layers (14
+   Mamba with the ssd_scan kernel, 2 attention; 8 MoE) as a dense tenant,
+   8 prompts of 512 tokens; one Mamba layer (prefill and decode steps)
+   and one MoE layer against the CPU in f32; a decode profile.
+9. ring: h2o-danube-3-4b at full width and depth (24 layers, head dim 120,
+   4096-token window) as a dense ring tenant, 4 prompts of 4608 tokens
+   (the prefill wraps the ring), 16 new tokens; one decode step past the
+   window against the paged pool (paged decode kernel); then phase 6's
+   remap with two danube tenants.
+10. the kernels line (JSON; launches summed over phases 3-9) and, last,
+   the result line (JSON).
 """
 from __future__ import annotations
 
@@ -56,6 +75,7 @@ import subprocess
 import sys
 import time
 import warnings
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -73,10 +93,10 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
-from repro_torch.models.blocks import ssd_decode_step  # noqa: E402
+from repro_torch.models.blocks import Mamba, MoE, ssd_decode_step  # noqa: E402,E501
 from repro_torch.models import attention_ops as plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.models.common import dtype_of, tree_leaves  # noqa: E402
 from repro_torch.serving import ServingEngine, TenantConfig  # noqa: E402
 from repro_torch.serving.traces import tiny_trace  # noqa: E402
 
@@ -85,6 +105,13 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 HQ, HKV, D, PAGE = 32, 8, 128, 16  # llama3-8b attention, engine page
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The served models' shapes (``SHAPES``) attend over up to 4608 keys: with
+# randn q/k/v an output row there has std ~ sqrt(e / keys) ~ 0.03, so TOL's
+# absolute 2e-2 is as large as the values. Those checks also hold each
+# output row (the head dim) to ROW_RTOL of its largest |plain value|: a few
+# bf16 ulps (2^-8 to 2^-7 of a value each), where one 64-key tile left out
+# or a window edge a tile off moves a row by ~0.1 of its largest value.
+ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Phase 3 compares the first-token logits of the monolithic (flash) and the
 # chunked (paged prefill) runs. Both are bf16 end to end: every activation
 # is rounded to 8 significant bits (2^-9 ~ 2e-3 relative) at each of the
@@ -361,6 +388,14 @@ def _err(out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
+def row_err(out, ref) -> float:
+    """The largest error of a row (the last axis) over that row's largest
+    |ref|, the worst row's."""
+    out, ref = out.float(), ref.float()
+    top = ref.abs().amax(-1).clamp_min(1e-30)
+    return ((out - ref).abs().amax(-1) / top).max().item()
+
+
 def check_decode(gen, rows):
     """Long contexts on a wide table (N=192: 12 splits of 256 keys), with
     and without a window; then the serve phase's own table (N=36 for its
@@ -592,9 +627,146 @@ def phase_kernels():
     check_prefill(gen, rows)
     check_flash(gen, rows)
     check_ssd(gen, rows)
+    for shape in SHAPES:
+        check_shape(gen, rows, shape)
     timing = time_kernels(gen)
     timing["ssd_scan"] = time_ssd(gen)
+    for shape in SHAPES:
+        time_shape(gen, shape)
     return {name: (max(errs), timing[name]) for name, errs in rows.items()}
+
+
+# ------------------------------------------- phase 2: phases 7 and 9's shapes
+# name -> (Hq, Hkv, D, window, B, decode contexts (the first one timed),
+# decode table width N, prefill chunk starts (the last one timed), flash S):
+# moonshot's MHA (G = 1) at phase 7's
+# shapes; danube's head dim 120 with and without its 4096-token window at
+# phase 9's (a 4608-token prompt, decode past it)
+SHAPES = {
+    "moonshot": (16, 16, 128, 0, 8, [528, 513, 520, 537, 544, 512, 384, 129],
+                 36, [0, 256], 512),
+    "danube": (32, 8, 120, 0, 4, [4609, 4615, 4100, 17], 290, [4352], 4608),
+    "danube_window": (32, 8, 120, 4096, 4, [4609, 4615, 4100, 17], 290,
+                      [4352], 4608),
+}
+
+
+def _shape_inputs(gen, shape, dt):
+    hq, hkv, d, window, b, lens, n, starts, s = SHAPES[shape]
+    kp, vp = (torch.randn((b * n + 1, PAGE, hkv, d), generator=gen,
+                          device="cuda").to(dt) for _ in range(2))
+    pt = _page_table(b, n, b * n + 1, gen)
+    return hq, hkv, d, window, b, lens, n, starts, s, kp, vp, pt
+
+
+def check_shape(gen, rows, shape):
+    """Flash, paged decode and paged prefill at one of ``SHAPES``, f32 and
+    bf16, against their plain versions: within TOL and, row by row, within
+    ROW_RTOL of the row's largest value."""
+    for dt in (torch.float32, torch.bfloat16):
+        hq, hkv, d, window, b, lens, n, starts, s, kp, vp, pt = \
+            _shape_inputs(gen, shape, dt)
+        outs = []
+        q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dt)
+        ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        outs.append(("paged_decode_attention",
+                     paged_ops.paged_decode_attention(q, kp, vp, pt, ctx,
+                                                      window=window),
+                     plain.paged_decode_attention(q, kp, vp, pt, ctx,
+                                                  window=window)))
+        q = torch.randn(1, 256, hq, d, generator=gen, device="cuda").to(dt)
+        for start in starts:
+            q_start = torch.tensor([start], dtype=torch.int32, device="cuda")
+            args = (q, kp, vp, pt[:1].contiguous(), q_start, q_start + 256)
+            outs.append(("paged_prefill_attention",
+                         paged_ops.paged_prefill_attention(*args,
+                                                           window=window),
+                         plain.paged_prefill_attention(*args,
+                                                       window=window)))
+        q, k, v = (torch.randn(1, s, h, d, generator=gen, device="cuda")
+                   .to(dt) for h in (hq, hkv, hkv))
+        outs.append(("flash_attention",
+                     flash_ops.flash_attention(q, k, v, window=window),
+                     plain.flash_attention(q, k, v, window=window)))
+        torch.cuda.synchronize()
+        errs = [(name, _err(out, ref), row_err(out, ref))
+                for name, out, ref in outs]
+        for name, e, _ in errs:
+            rows[name].append(e)
+        log(f"[kernels] {shape} {str(dt)[6:]} (Hq {hq}, Hkv {hkv}, D {d}, "
+            f"window {window}): " + ", ".join(
+                f"{name} max_err={e:.3g} row_err={r:.3g}"
+                for name, e, r in errs)
+            + f" (limits {TOL[dt]:g} and {ROW_RTOL[dt]:g} of a row)")
+        for name, e, r in errs:
+            if not (e < TOL[dt] and r < ROW_RTOL[dt]):
+                fail(f"{name} at {shape} {dt}: max_err {e} (limit "
+                     f"{TOL[dt]}), row_err {r} (limit {ROW_RTOL[dt]})")
+
+
+def time_shape(gen, shape):
+    """The three attention kernels at one of ``SHAPES`` in bf16, by graph
+    replay, beside their plain versions, their bounds and, for flash, one
+    causal SDPA call. SDPA takes a window only as a boolean mask, which
+    costs it its flash backend, so with a window the causal call (a little
+    more work) stays the yardstick and the masked call is printed beside."""
+    dt = torch.bfloat16
+    hq, hkv, d, window, b, lens, n, starts, s, kp, vp, pt = \
+        _shape_inputs(gen, shape, dt)
+    lens = [lens[0]] * b                   # the first context of each row
+    q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dt)
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    keys = sum(min(c, window) if window else c for c in lens)
+    out = [("paged_decode_attention", f"B={b} ctx={lens[0]}",
+            lambda: paged_ops.paged_decode_attention(q, kp, vp, pt, ctx,
+                                                     window=window),
+            lambda: plain.paged_decode_attention(q, kp, vp, pt, ctx,
+                                                 window=window),
+            None, bound((2 * q.numel() + 2 * keys * hkv * d) * 2
+                        + pt.numel() * 4, 4 * hq * d * keys))]
+    start = starts[-1]
+    qp = torch.randn(1, 256, hq, d, generator=gen, device="cuda").to(dt)
+    q_start = torch.tensor([start], dtype=torch.int32, device="cuda")
+    pre = (qp, kp, vp, pt[:1].contiguous(), q_start, q_start + 256)
+    seen = sum(visible(start + i, start + 256, window) for i in range(256))
+    lo = max(0, start - window + 1) if window else 0
+    out.append(("paged_prefill_attention", f"Sq=256 q_start={start}",
+                lambda: paged_ops.paged_prefill_attention(*pre,
+                                                          window=window),
+                lambda: plain.paged_prefill_attention(*pre, window=window),
+                None, bound((2 * qp.numel() + 2 * (start + 256 - lo) * hkv
+                             * d) * 2, 4 * hq * d * seen)))
+    qf, kf, vf = (torch.randn(1, s, h, d, generator=gen, device="cuda")
+                  .to(dt) for h in (hq, hkv, hkv))
+    qt, kt, vt = (x.transpose(1, 2) for x in (qf, kf, vf))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    out.append(("flash_attention", f"B=1 S={s}",
+                lambda: flash_ops.flash_attention(qf, kf, vf, window=window),
+                lambda: plain.flash_attention(qf, kf, vf, window=window),
+                sdpa, bound(*attention_work(s, s, hq, hkv, d,
+                                            window=window))))
+    for name, what, fn, plain_fn, lib, (bms, by) in out:
+        calls = 20 if s <= 512 or name != "flash_attention" else 5
+        ms = device_ms(fn, calls, 10)
+        pms = time_ms(plain_fn, 3, warmup=1)
+        lms = device_ms(lib, calls, 10) if lib is not None else None
+        masked = ""
+        if lib is not None and window:
+            i = torch.arange(s, device="cuda")
+            mask = (i[None, :] <= i[:, None]) \
+                & (i[:, None] - i[None, :] < window)
+            masked = "; with the window as a boolean mask {:.4f} ms".format(
+                device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), calls, 10))
+        log(f"[kernels] time {name} at {shape} (Hq {hq}, Hkv {hkv}, D {d}, "
+            f"window {window}, {what}, bf16): {ms:.4f} ms (graph replay), "
+            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{bms / ms:.3f} of it, library "
+            + ("none" if lms is None else
+               f"{lms:.4f} ms (SDPA causal{masked})"))
 
 
 # ------------------------------------------------------- phase 2: ssd_scan
@@ -726,10 +898,12 @@ def device_us(fn, calls: int = 10):
 
 
 # ---------------------------------------------------------------- phase 3
-def _drive(eng, trace):
+def _drive(eng, trace, profile_fn=None):
     """``submit`` then ``run``: first step by step until every request has
     its first token (admission and prefill), then the decode-only rest in
-    one call; the two are timed apart."""
+    one call; the two are timed apart. With ``profile_fn``, the first
+    decode steps go to it (a function of a one-step callable) before the
+    rest is timed, and its result comes back too."""
     eng.submit(trace)
     _sync()
     t0 = time.perf_counter()
@@ -737,16 +911,22 @@ def _drive(eng, trace):
         warnings.simplefilter("ignore", RuntimeWarning)
         while eng.busy() and not all(r.generated for r in trace):
             eng.run(max_steps=eng.step_idx + 1)
-    _sync()
-    t1 = time.perf_counter()
+        _sync()
+        t1 = time.perf_counter()
+        prof = profile_fn(lambda: eng.run(max_steps=eng.step_idx + 1)) \
+            if profile_fn else None
     before = sum(len(r.generated) for r in trace)
-    eng.run()
     _sync()
     t2 = time.perf_counter()
-    return t1 - t0, t2 - t1, sum(len(r.generated) for r in trace) - before
+    eng.run()
+    _sync()
+    t3 = time.perf_counter()
+    return (t1 - t0, t3 - t2, sum(len(r.generated) for r in trace) - before,
+            prof)
 
 
-def serve_once(cfg, params, chunk: int):
+def serve_once(cfg, params, chunk: int, tag: str = "serve",
+               profile_fn=None):
     name = cfg.name
     eng = ServingEngine(
         {name: TenantConfig(cfg, params, max_batch=8,
@@ -757,18 +937,57 @@ def serve_once(cfg, params, chunk: int):
     trace = tiny_trace([name], n_per_model=8, prompt_len=PROMPT,
                        max_new=NEW, vocab=cfg.vocab_size, seed=0)
     kernels.reset_launch_counts()
-    t_pre, t_dec, dec_tokens = _drive(eng, trace)
+    t_pre, t_dec, dec_tokens, prof = _drive(eng, trace, profile_fn)
     counts = kernels.launch_counts()
     gen = {r.rid: list(r.generated) for r in eng.finished}
     kinds = [k for _, k, _ in eng.events]
-    log(f"[serve] chunk={chunk}: finished {len(eng.finished)} requests, "
+    log(f"[{tag}] chunk={chunk}: finished {len(eng.finished)} requests, "
         f"{sum(map(len, gen.values()))} tokens in {eng.step_idx} steps; "
         f"admit+prefill steps {t_pre:.3f} s, decode {dec_tokens} tokens in "
         f"{t_dec:.3f} s = {dec_tokens / t_dec:.1f} tok/s; remaps "
         f"{kinds.count('remap')}; launches {counts}")
     if len(eng.finished) != 8 or any(len(g) != NEW for g in gen.values()):
-        fail(f"serve chunk={chunk}: not every request made {NEW} tokens")
-    return gen, eng.prefill_logits, counts
+        fail(f"{tag} chunk={chunk}: not every request made {NEW} tokens")
+    return gen, eng.prefill_logits, counts, prof
+
+
+def compare_prefills(cfg, tag, mono, mono_logits, chunked, chunk_logits):
+    """Each request's first-token logits, monolithic against chunked: both
+    finite, [V], not all zero. Returns (max |d| / max |logit| over the
+    requests, the largest |logit|, tokens agreeing, tokens)."""
+    worst, top = 0.0, 0.0
+    for rid, a in mono_logits.items():
+        b = chunk_logits[rid]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            fail(f"{tag}: non-finite prefill logits for {rid}")
+        if a.shape != (cfg.vocab_size,) or not a.abs().max() > 0:
+            fail(f"{tag}: prefill logits of {rid} are {tuple(a.shape)}, "
+                 f"max |logit| {a.abs().max().item()}")
+        worst = max(worst, ((a - b).abs().max() / a.abs().max()).item())
+        top = max(top, a.abs().max().item())
+    same = sum(x == y for rid in mono for x, y in zip(mono[rid],
+                                                      chunked[rid]))
+    return worst, top, same, sum(len(g) for g in mono.values())
+
+
+def check_paged_launches(tag, c_mono, c_chunk):
+    """Each kernel of the paged path launched in its run (flash in the
+    monolithic one, paged prefill in the chunked one, paged decode in
+    both); returns the two runs' launches summed."""
+    if DEVICE == "cuda" and not (
+            c_mono["flash_attention"] > 0
+            and c_mono["paged_decode_attention"] > 0
+            and c_chunk["paged_prefill_attention"] > 0
+            and c_chunk["paged_decode_attention"] > 0):
+        fail(f"{tag}: a kernel of the path never launched: {c_mono} "
+             f"{c_chunk}")
+    return {k: c_mono[k] + c_chunk[k] for k in c_mono}
+
+
+def _free() -> None:
+    """Hand the freed phase's device memory back before the next phase."""
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
 
 
 def phase_serve(cfg=ARCHS["llama3-8b"]):
@@ -782,21 +1001,10 @@ def phase_serve(cfg=ARCHS["llama3-8b"]):
         f" heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.3f} B params "
         f"initialised in {time.perf_counter() - t0:.1f} s")
-    mono, mono_logits, c_mono = serve_once(cfg, params, 0)
-    chunked, chunk_logits, c_chunk = serve_once(cfg, params, PROMPT // 2)
-    worst, top = 0.0, 0.0
-    for rid, a in mono_logits.items():
-        b = chunk_logits[rid]
-        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            fail(f"serve: non-finite prefill logits for {rid}")
-        if a.shape != (cfg.vocab_size,) or not a.abs().max() > 0:
-            fail(f"serve: prefill logits of {rid} are {tuple(a.shape)}, "
-                 f"max |logit| {a.abs().max().item()}")
-        worst = max(worst, ((a - b).abs().max() / a.abs().max()).item())
-        top = max(top, a.abs().max().item())
-    same = sum(x == y for rid in mono for x, y in zip(mono[rid],
-                                                      chunked[rid]))
-    total = sum(len(g) for g in mono.values())
+    mono, mono_logits, c_mono, _ = serve_once(cfg, params, 0)
+    chunked, chunk_logits, c_chunk, _ = serve_once(cfg, params, PROMPT // 2)
+    worst, top, same, total = compare_prefills(
+        cfg, "serve", mono, mono_logits, chunked, chunk_logits)
     log(f"[serve] prefill logits monolithic vs chunked: max|d|/max|logit| = "
         f"{worst:.3g} (tolerance {LOGIT_RTOL}; max|logit| {top:.3g}); "
         f"generated tokens agreeing: "
@@ -804,17 +1012,9 @@ def phase_serve(cfg=ARCHS["llama3-8b"]):
     if not worst <= LOGIT_RTOL:
         fail(f"serve: prefill logits differ by {worst} > {LOGIT_RTOL}")
     log(f"[serve] peak memory {_peak() / 2**30:.2f} GiB")
-    launches = {k: c_mono[k] + c_chunk[k] for k in c_mono}
-    if DEVICE == "cuda" and not (
-            c_mono["flash_attention"] > 0
-            and c_mono["paged_decode_attention"] > 0
-            and c_chunk["paged_prefill_attention"] > 0
-            and c_chunk["paged_decode_attention"] > 0):
-        fail(f"serve: a kernel of the path never launched: {c_mono} "
-             f"{c_chunk}")
+    launches = check_paged_launches("serve", c_mono, c_chunk)
     del params, model
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
+    _free()
     return launches
 
 
@@ -828,10 +1028,12 @@ def remap_once(tenants_params, cfg, base_pages: int):
     eng.submit(tiny_trace(list(tenants_params), n_per_model=3,
                           prompt_len=96, max_new=16, vocab=cfg.vocab_size,
                           seed=1))
+    kernels.reset_launch_counts()
     eng.run()
-    eng.allocator.check_invariants()
     _sync()
-    return eng
+    counts = kernels.launch_counts()
+    eng.allocator.check_invariants()
+    return eng, counts
 
 
 def phase_remap(cfg=dataclasses.replace(ARCHS["llama3-8b"], num_layers=2)):
@@ -852,16 +1054,17 @@ def phase_remap(cfg=dataclasses.replace(ARCHS["llama3-8b"], num_layers=2)):
         f"layer; each remap grows both pools by {per_remap / 2**30:.2f} GiB, "
         f"room for {room} remap events on the card; expected here: one "
         f"pressure episode, so 1 remap (then a revert once calm)")
-    results = {}
+    results, launches = {}, Counter()
     for label, base in (("pressure", 16), ("ample", 256)):
-        eng = remap_once(tp, cfg, base)
+        eng, counts = remap_once(tp, cfg, base)
+        launches.update(counts)
         ev = [(s, k, d) for s, k, d in eng.events if k in ("remap", "revert")]
         gen = {r.rid: list(r.generated) for r in eng.finished}
         log(f"[remap] {label}: base_kv_pages={base} finished "
             f"{len(eng.finished)} requests; remap/revert events {ev}; "
             f"page_id_bound {eng.allocator.page_id_bound}; TransferStats "
             f"{dataclasses.asdict(eng.xfer.stats)}; host->device fetch bytes "
-            f"{eng.xfer.host_fetch_bytes}; peak memory "
+            f"{eng.xfer.host_fetch_bytes}; launches {counts}; peak memory "
             f"{_peak() / 2**30:.2f} GiB")
         results[label] = (eng, gen)
         if len(eng.finished) != 6:
@@ -878,6 +1081,9 @@ def phase_remap(cfg=dataclasses.replace(ARCHS["llama3-8b"], num_layers=2)):
         fail("remap: peak memory above 80 GB")
     log(f"[remap] {kinds.count('remap')} remap and {kinds.count('revert')} "
         f"revert events; generated tokens identical to the ample-pool run")
+    del results, p_eng, tp
+    _free()
+    return launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -885,35 +1091,92 @@ def _tokens(seq) -> torch.Tensor:
     return torch.from_numpy(np.asarray(seq, np.int64)).to(DEVICE)
 
 
-def decode_profile(model, params, state, max_context, steps: int = 3):
-    """Kernel launches and device idle share of a decode step on the
-    tenant's batch state: the step's wall time from ``steps`` plain
-    ``decode_step`` calls, its launches and device time from as many more
-    under the profiler (whose own cost per launch would inflate the wall
-    time)."""
-    tokens = torch.zeros(state["pos"].shape[0], dtype=torch.int32,
-                         device=DEVICE)
-    model.decode_step(params, state, tokens, max_context)      # warm
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def _is_expert_bmm(event, expert_shape) -> bool:
+    """An ``aten::bmm`` call whose second operand is an expert weight stack
+    of ``expert_shape`` (E, d, f): [E, d, f] or [E, f, d]."""
+    shapes = getattr(event, "input_shapes", None) or []
+    if event.key != "aten::bmm" or len(shapes) < 2 or len(shapes[1]) != 3:
+        return False
+    e, d, f = expert_shape
+    return shapes[1][0] == e and sorted(shapes[1][1:]) == sorted((d, f))
+
+
+def step_profile(step, steps: int = 3, expert_shape=None,
+                 top: int = 6) -> dict:
+    """One decode step, ``step()``, profiled: its wall time from ``steps``
+    plain calls after a warm one; its launches and device time from as many
+    more under the profiler (whose own cost per launch inflates the wall
+    time), by kernel (the ``top`` longest) and, with ``expert_shape``, in
+    the MoE expert products (the ``aten::bmm`` calls on the expert
+    weights)."""
+    step()
     _sync()
     t0 = time.perf_counter()
     for _ in range(steps):
-        model.decode_step(params, state, tokens, max_context)
+        step()
     _sync()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=expert_shape is not None) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            model.decode_step(params, state, tokens, max_context)
+            step()
         _sync()
         prof_wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in avg
-                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    launches = sum(e.count for e in avg if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    return (launches / steps, wall / steps * 1e3, prof_wall / steps * 1e3,
-            dev_us / 1e3 / steps)
+    avg = prof.key_averages(group_by_input_shape=expert_shape is not None)
+    on_device = [e for e in avg
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    expert = None
+    if expert_shape is not None:
+        expert = sum(getattr(e, "device_time_total", 0) for e in avg
+                     if _is_expert_bmm(e, expert_shape)) / 1e3 / steps
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:top]
+    return {
+        "launches": sum(e.count for e in avg if e.key in _LAUNCH_KEYS) / steps,
+        "wall_ms": wall / steps * 1e3, "prof_ms": prof_wall / steps * 1e3,
+        "dev_ms": sum(e.self_device_time_total for e in on_device)
+        / 1e3 / steps,
+        "expert_ms": expert,
+        "top": [(_kernel_key(e.key), e.self_device_time_total / 1e3 / steps,
+                 e.count / steps) for e in top]}
+
+
+def log_profile(tag: str, batch: int, prof: dict, bound_ms=None) -> None:
+    dev, wall = prof["dev_ms"], prof["wall_ms"]
+    split = "" if prof["expert_ms"] is None else (
+        f" (expert bmm {prof['expert_ms']:.3f} ms, the rest "
+        f"{dev - prof['expert_ms']:.3f} ms)")
+    log(f"[{tag}] decode step (batch {batch}): wall {wall:.3f} ms; under "
+        f"the profiler {prof['prof_ms']:.3f} ms, {prof['launches']:.0f} "
+        f"kernel launches, device {dev:.3f} ms{split}; device idle share "
+        f"{1 - dev / wall:.3f} of the unprofiled step"
+        + ("" if bound_ms is None else
+           f"; weight-read bound {bound_ms:.3f} ms, {bound_ms / dev:.3f} of "
+           f"the device time"))
+    log(f"[{tag}] device time per step by kernel: " + ", ".join(
+        f"{k} {ms:.3f} ms ({n:.0f} calls)" for k, ms, n in prof["top"]))
+
+
+def weight_read_ms(params, cfg, batch: int) -> float:
+    """The least time a decode step of ``batch`` tokens could take where
+    it reads every weight once (an MoE layer reads every expert when the
+    capacity floor gives each one slots): all parameter bytes, of the
+    embedding table only the batch's rows (unless it is the tied output
+    layer too), over the memory rate."""
+    total = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    emb = params["embed"]
+    if not cfg.tie_embeddings:
+        total -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def _decode_step_fn(model, params, state, max_context: int):
+    tokens = torch.zeros(state["pos"].shape[0], dtype=torch.int32,
+                         device=DEVICE)
+    return lambda: model.decode_step(params, state, tokens, max_context)
 
 
 def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
@@ -940,7 +1203,7 @@ def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
                        max_new=NEW, vocab=cfg.vocab_size, seed=0)
     prompts = {r.rid: np.array(r.prompt) for r in trace}
     kernels.reset_launch_counts()
-    t_pre, t_dec, dec_tokens = _drive(eng, trace)
+    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
     counts = kernels.launch_counts()
     kinds = [k for _, k, _ in eng.events]
     n_prefills = kinds.count("prefill")
@@ -981,33 +1244,31 @@ def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
     if not worst <= LOGIT_RTOL:
         fail(f"xlstm: prefill/decode logits differ by {worst} > {LOGIT_RTOL}")
     if DEVICE == "cuda":
-        t = eng.tenants[cfg.name]
-        per_step, step_ms, prof_ms, dev_ms = decode_profile(
-            model, params, t.state, max_context)
-        log(f"[xlstm] decode step (batch 8): wall {step_ms:.3f} ms; under "
-            f"the profiler {prof_ms:.3f} ms, {per_step:.0f} kernel launches, "
-            f"device {dev_ms:.3f} ms; device idle share "
-            f"{1 - dev_ms / step_ms:.3f} of the unprofiled step")
+        log_profile("xlstm", 8, step_profile(_decode_step_fn(
+            model, params, eng.tenants[cfg.name].state, max_context)))
     log(f"[xlstm] peak memory {_peak() / 2**30:.2f} GiB")
     del eng, params, model
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
+    _free()
     return counts
 
 
-# ---------------------------------------------------------------- phase 6
-def phase_xlstm_remap(cfg=ARCHS["xlstm-1.3b"]):
+# ------------------------------------------------------------ phases 6, 9
+def phase_dense_remap(cfg, tag: str, kernel: str, seeds):
+    """Two full-depth dense tenants of ``cfg``: a small KV budget (the
+    controller remaps repeats of one tenant, which then streams them from
+    pinned host memory) against an ample one; identical tokens. ``kernel``
+    is the kernel their prefill must launch."""
     _reset_peak()
     model = build_model(cfg)
     tp = {n: model.init(torch.Generator(device=DEVICE).manual_seed(seed),
-                        DEVICE) for n, seed in (("X", 4), ("Y", 5))}
+                        DEVICE) for n, seed in zip("XY", seeds)}
     unit = sum(x.numel() * x.element_size()
                for x in tree_leaves(tp["X"]["blocks"])) // model.repeats
-    log(f"[xlstm-remap] two {cfg.name} tenants, {model.repeats} repeats of "
+    log(f"[{tag}] two {cfg.name} tenants, {model.repeats} repeats of "
         f"{unit} bytes; a remap donates whole repeats "
         f"({unit // (PAGE * 1024)} nominal pages each); dense tenants have no "
         f"pool to grow")
-    results = {}
+    results, launches = {}, Counter()
     for label, base in zip(("pressure", "ample"), REMAP_PAGES):
         eng = ServingEngine(
             {n: TenantConfig(cfg, p, max_batch=4,
@@ -1022,43 +1283,342 @@ def phase_xlstm_remap(cfg=ARCHS["xlstm-1.3b"]):
         eng.run()
         _sync()
         counts = kernels.launch_counts()
+        launches.update(counts)
         eng.allocator.check_invariants()
         ev = [(s, k, d) for s, k, d in eng.events
               if k in ("remap", "revert", "preempt")]
         gen = {r.rid: list(r.generated) for r in eng.finished}
-        log(f"[xlstm-remap] {label}: base_kv_pages={base} finished "
+        log(f"[{tag}] {label}: base_kv_pages={base} finished "
             f"{len(eng.finished)} requests in {eng.step_idx} steps, "
             f"{time.perf_counter() - t0:.2f} s; events {ev}; TransferStats "
             f"{dataclasses.asdict(eng.xfer.stats)}; host->device fetch bytes "
-            f"{eng.xfer.host_fetch_bytes}; ssd_scan launches "
-            f"{counts['ssd_scan']}; peak memory {_peak() / 2**30:.2f} GiB")
+            f"{eng.xfer.host_fetch_bytes}; {kernel} launches "
+            f"{counts[kernel]}; peak memory {_peak() / 2**30:.2f} GiB")
         results[label] = (eng, gen)
         if len(eng.finished) != 6:
-            fail(f"xlstm-remap {label}: {len(eng.finished)} of 6 finished")
-        if DEVICE == "cuda" and counts["ssd_scan"] <= 0:
-            fail(f"xlstm-remap {label}: ssd_scan never launched")
+            fail(f"{tag} {label}: {len(eng.finished)} of 6 finished")
+        if DEVICE == "cuda" and counts[kernel] <= 0:
+            fail(f"{tag} {label}: {kernel} never launched")
     p_eng, p_gen = results["pressure"]
     kinds = [k for _, k, _ in p_eng.events]
     st = p_eng.xfer.stats
     if kinds.count("remap") < 1:
-        fail("xlstm-remap: the small budget never remapped")
+        fail(f"{tag}: the small budget never remapped")
     if DEVICE == "cuda" and not (
             p_eng.xfer.host_fetch_bytes > 0
             and p_eng.xfer.host_fetch_bytes == st.stream_bytes):
-        fail(f"xlstm-remap: streamed {p_eng.xfer.host_fetch_bytes} bytes, "
+        fail(f"{tag}: streamed {p_eng.xfer.host_fetch_bytes} bytes, "
              f"TransferStats.stream_bytes {st.stream_bytes}")
     if p_gen != results["ample"][1]:
-        fail(f"xlstm-remap: generated tokens differ:\n{p_gen}\n"
+        fail(f"{tag}: generated tokens differ:\n{p_gen}\n"
              f"{results['ample'][1]}")
     if _peak() > 80e9:
-        fail("xlstm-remap: peak memory above 80 GB")
-    log(f"[xlstm-remap] {kinds.count('remap')} remap and "
+        fail(f"{tag}: peak memory above 80 GB")
+    log(f"[{tag}] {kinds.count('remap')} remap and "
         f"{kinds.count('revert')} revert events; the donor streamed "
         f"{p_eng.xfer.host_fetch_bytes} bytes host->device (= stream_bytes); "
         f"generated tokens identical to the ample-budget run")
     del results, p_eng, tp, model
+    _free()
+    return launches
+
+
+def phase_xlstm_remap(cfg=ARCHS["xlstm-1.3b"]):
+    return phase_dense_remap(cfg, "xlstm-remap", "ssd_scan", (4, 5))
+
+
+# ---------------------------------------------------------------- phase 7
+# the MoE layer check: tokens, the share of them that must be routed to
+# the same top-k set on the card (bf16) as on the CPU (f32), and y on the
+# tokens whose kept experts agree, within MOE_RTOL * max|y|
+MOE_TOKENS, MOE_SET_AGREE, MOE_RTOL = 512, 0.99, 2e-2
+
+
+def _layer(params, pos: int, part: str, r: int = 0):
+    """Repeat r's parameters of pattern position ``pos``'s ``part``."""
+    return {k: v[r] for k, v in params["blocks"][pos][part].items()}
+
+
+def _init(cfg, seed: int, tag: str, detail: str):
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE)
+    _sync()
+    leaves = tree_leaves(params)
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers ({model.repeats} x "
+        f"{[f'{ld.mixer}/{ld.ffn}' for ld in model.impl.pattern]}), d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x "
+        f"{cfg.resolved_head_dim}, {detail}vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; {sum(x.numel() for x in leaves) / 1e9:.3f} B params, "
+        f"{sum(x.numel() * x.element_size() for x in leaves) / 1e9:.2f} GB, "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def _rel_err(a, ref) -> float:
+    return ((a.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+
+
+def check_moe_layer(cfg, p, tag: str, seed: int) -> None:
+    """One MoE layer on ``MOE_TOKENS`` tokens at full width: on the device
+    in the model's dtype, against the same layer on the CPU in f32 (the
+    same weights and inputs, widened). A near-tie in the f32 router
+    probabilities may route a token differently; y is compared on the
+    tokens whose kept experts (after capacity) agree."""
+    moe = MoE()
+    e = cfg.moe.num_experts
+    x = torch.randn(MOE_TOKENS, cfg.d_model, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(seed)
+                    ).to(dtype_of(cfg))
+    y, aux, counts = moe(p, x, cfg, return_stats=True)
+    _, top_e, _, _, slot, cap = moe.route(p, x, cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.cpu().float() for k, v in p.items()}
+    y32, aux32, counts32 = moe(p32, x.cpu().float(), cfg32, return_stats=True)
+    _, top_e32, _, _, slot32, _ = moe.route(p32, x.cpu().float(), cfg32)
+
+    def kept(sl):          # the kept assignments' experts, ascending
+        return torch.where(sl < e * cap, sl // cap, -1).cpu()
+    same_set = (top_e.sort(-1).values.cpu() == top_e32.sort(-1).values
+                ).all(-1)
+    agree = same_set & (kept(slot) == kept(slot32)).all(-1)
+    top = y32.abs().max().item()
+    err = ((y.float().cpu() - y32)[agree].abs().max() / top).item()
+    log(f"[{tag}] MoE layer, {MOE_TOKENS} tokens, capacity {cap}: device "
+        f"{cfg.dtype} against CPU f32: tokens with another top-"
+        f"{cfg.moe.top_k} set {int((~same_set).sum())}, with other kept "
+        f"experts {int((~agree).sum())}; on the rest max|dy|/max|y| = "
+        f"{err:.3g} (tolerance {MOE_RTOL}; max|y| {top:.3g}); dropped "
+        f"assignments {int((slot == e * cap).sum())} / "
+        f"{int((slot32 == e * cap).sum())}; aux {aux.item():.5f} / "
+        f"{aux32.item():.5f}; counts {counts.int().tolist()} / "
+        f"{counts32.int().tolist()}")
+    if not torch.isfinite(y).all() or y.shape != x.shape:
+        fail(f"{tag}: MoE output {tuple(y.shape)} not finite")
+    if same_set.float().mean().item() < MOE_SET_AGREE:
+        fail(f"{tag}: {int((~same_set).sum())} of {MOE_TOKENS} tokens routed "
+             f"to another top-k set on the CPU")
+    if not err <= MOE_RTOL:
+        fail(f"{tag}: MoE layer differs by {err} > {MOE_RTOL}")
+
+
+def phase_moonshot(cfg=ARCHS["moonshot-v1-16b-a3b"]):
+    _reset_peak()
+    m = cfg.moe
+    model, params = _init(cfg, 6, "moe", f"{m.num_experts} experts top-"
+                          f"{m.top_k}, d_expert {m.d_expert}, ")
+    check_moe_layer(cfg, _layer(params, 0, "ffn"), "moe", 7)
+    unit = sum(x.numel() * x.element_size()
+               for x in tree_leaves(params["blocks"])) // model.repeats
+    page_bytes = 2 * model.repeats * PAGE * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2
+    log(f"[moe] no remap on the card: one donated layer ({unit} bytes) "
+        f"would grow the paged pool by {unit // (PAGE * 1024)} nominal pages "
+        f"(page_size * 1024 bytes each) of {page_bytes} bytes of K and V "
+        f"(all {model.repeats} layers), "
+        f"{unit // (PAGE * 1024) * page_bytes / 1e9:.0f} GB")
+    expert_shape = (m.num_experts, cfg.d_model, m.d_expert)
+    prof_fn = (lambda step: step_profile(step, 3, expert_shape)) \
+        if DEVICE == "cuda" else None
+    mono, mono_logits, c_mono, prof = serve_once(cfg, params, 0, "moe",
+                                                 prof_fn)
+    chunked, chunk_logits, c_chunk, _ = serve_once(cfg, params, PROMPT // 2,
+                                                   "moe")
+    worst, top, same, total = compare_prefills(
+        cfg, "moe", mono, mono_logits, chunked, chunk_logits)
+    log(f"[moe] prefill logits monolithic vs chunked: max|d|/max|logit| = "
+        f"{worst:.3g} (not a check: the capacity depends on a call's token "
+        f"count, so a 256-token chunk and the 512-token prompt may drop "
+        f"different assignments; max|logit| {top:.3g}); generated tokens "
+        f"agreeing: {same}/{total} = {same / total:.3f}")
+    if prof is not None:
+        log_profile("moe", 8, prof, weight_read_ms(params, cfg, 8))
+    log(f"[moe] peak memory {_peak() / 2**30:.2f} GiB")
+    launches = check_paged_launches("moe", c_mono, c_chunk)
+    del params, model
+    _free()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8
+# jamba's depth cut: 2 of its 4 repeats of the 8-layer pattern (16 of 32
+# layers: 14 Mamba + 2 attention, 8 MoE; 52 GB in bf16); all 32 layers
+# (102.9 GB) do not fit one card
+JAMBA_LAYERS = 16
+# the Mamba layer check: y and the ssm/conv state, device against CPU f32,
+# within MAMBA_RTOL of the largest value
+MAMBA_RTOL, MAMBA_STEPS = 2e-2, 4
+
+
+def check_mamba_layer(cfg, p, tag: str, seed: int) -> None:
+    """One Mamba layer, a prefill of ``PROMPT`` tokens (the ``ssd_scan``
+    kernel on the card) and ``MAMBA_STEPS`` decode steps, on the device in
+    the model's dtype against the same layer on the CPU in f32."""
+    mamba = Mamba()
+    x = torch.randn(2, PROMPT + MAMBA_STEPS, cfg.d_model, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(seed)
+                    ).to(dtype_of(cfg))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.cpu().float() for k, v in p.items()}
+    x32 = x.cpu().float()
+    y, st = mamba.fwd_seq(p, x[:, :PROMPT], {}, cfg)
+    y32, st32 = mamba.fwd_seq(p32, x32[:, :PROMPT], {}, cfg32)
+    errs = [("prefill y", _rel_err(y, y32))]
+    for i in range(MAMBA_STEPS):
+        y, st = mamba.fwd_dec(p, x[:, PROMPT + i], st, {}, cfg)
+        y32, st32 = mamba.fwd_dec(p32, x32[:, PROMPT + i], st32, {}, cfg32)
+        errs.append((f"decode {i} y", _rel_err(y, y32)))
+    errs += [(k, _rel_err(st[k], st32[k])) for k in ("ssm", "conv")]
+    log(f"[{tag}] Mamba layer, prefill of {PROMPT} tokens and "
+        f"{MAMBA_STEPS} decode steps, device {cfg.dtype} against CPU f32, "
+        f"max|d|/max|ref|: " + ", ".join(f"{k} {e:.3g}" for k, e in errs)
+        + f" (tolerance {MAMBA_RTOL})")
+    for k, e in errs:
+        if not e <= MAMBA_RTOL:
+            fail(f"{tag}: Mamba layer {k} differs by {e} > {MAMBA_RTOL}")
+
+
+def phase_jamba(cfg=dataclasses.replace(ARCHS["jamba-v0.1-52b"],
+                                        num_layers=JAMBA_LAYERS)):
+    _reset_peak()
+    m = cfg.moe
+    model, params = _init(cfg, 8, "hybrid", f"Mamba d_in "
+                          f"{cfg.ssm.expand * cfg.d_model} (d_state "
+                          f"{cfg.ssm.d_state}), {m.num_experts} experts top-"
+                          f"{m.top_k} d_expert {m.d_expert}, ")
+    pattern = model.impl.pattern
+    check_mamba_layer(cfg, _layer(params, 0, "mixer"), "hybrid", 9)
+    moe_pos = [ld.ffn for ld in pattern].index("moe")
+    check_moe_layer(cfg, _layer(params, moe_pos, "ffn"), "hybrid", 10)
+    n_mamba = sum(ld.mixer == "mamba" for ld in pattern) * model.repeats
+    n_attn = sum(ld.mixer == "attn" for ld in pattern) * model.repeats
+    max_context = PROMPT + NEW + 2
+    eng = ServingEngine(
+        {cfg.name: TenantConfig(cfg, params, max_batch=8,
+                                max_context=max_context, paged=False)},
+        mode="mirage", base_kv_pages=512, page_size=PAGE, device=DEVICE,
+        keep_prefill_logits=True)
+    trace = tiny_trace([cfg.name], n_per_model=8, prompt_len=PROMPT,
+                       max_new=NEW, vocab=cfg.vocab_size, seed=0)
+    kernels.reset_launch_counts()
+    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
+    counts = kernels.launch_counts()
+    kinds = [k for _, k, _ in eng.events]
+    log(f"[hybrid] dense tenant: finished {len(eng.finished)} requests, "
+        f"{sum(len(r.generated) for r in eng.finished)} tokens in "
+        f"{eng.step_idx} steps; admit+prefill steps {t_pre:.3f} s, decode "
+        f"{dec_tokens} tokens in {t_dec:.3f} s = {dec_tokens / t_dec:.1f} "
+        f"tok/s; launches {counts} ({n_mamba} Mamba and {n_attn} attention "
+        f"layers a prompt)")
+    if len(eng.finished) != 8 or any(len(r.generated) != NEW
+                                     for r in eng.finished):
+        fail(f"hybrid: not every request made {NEW} tokens")
+    if "preempt" in kinds or "remap" in kinds:
+        fail(f"hybrid: the ample budget preempted or remapped: {kinds}")
+    if DEVICE == "cuda" and (counts["ssd_scan"] != 8 * n_mamba
+                             or counts["flash_attention"] != 8 * n_attn):
+        fail(f"hybrid: launches {counts}, expected {8 * n_mamba} ssd_scan "
+             f"and {8 * n_attn} flash_attention")
+    for rid, a in eng.prefill_logits.items():
+        if a.shape != (cfg.vocab_size,) or not torch.isfinite(a).all() \
+                or not a.abs().max() > 0:
+            fail(f"hybrid: prefill logits of {rid} are {tuple(a.shape)}, "
+                 f"max |logit| {a.abs().max().item()}")
     if DEVICE == "cuda":
-        torch.cuda.empty_cache()
+        log_profile("hybrid", 8, step_profile(
+            _decode_step_fn(model, params, eng.tenants[cfg.name].state,
+                            max_context), 3,
+            (m.num_experts, cfg.d_model, m.d_expert)),
+            weight_read_ms(params, cfg, 8))
+    log(f"[hybrid] peak memory {_peak() / 2**30:.2f} GiB")
+    del eng, params, model
+    _free()
+    return counts
+
+
+# ---------------------------------------------------------------- phase 9
+# the ring tenant's requests: prompts longer than danube's 4096-token
+# window, so the prefill wraps the ring
+RING_BATCH, RING_PROMPT, RING_NEW = 4, 4608, 16
+
+
+def check_ring_against_paged(model, params, prompt, max_context: int):
+    """One prompt's prefill, then one decode step of its greedy token past
+    the window: against the dense ring (plain decode attention) and against
+    the paged pool (the paged decode kernel on the card, with the window).
+    Returns max |d| / max |logit|."""
+    lm = model.impl
+    tokens = _tokens(prompt[None, :])
+    s = tokens.shape[1]
+    x = lm.embed(params, tokens)
+    positions = torch.arange(s, dtype=torch.int32, device=DEVICE)[None]
+    xo, _, caches = lm.fwd_seq(params, x, {"positions": positions},
+                               collect_cache=True)
+    tok = lm.logits_last(params, xo[:, -1]).argmax(-1).to(torch.int32)
+    lengths = torch.full((1,), s, dtype=torch.int32, device=DEVICE)
+    n = -(-max_context // PAGE)
+    table = torch.arange(n, dtype=torch.int32, device=DEVICE)[None]
+    paged = lm.paged_state_from_prefill(caches, lengths, table, n + 1, PAGE)
+    dense = lm.state_from_prefill(caches, lengths, max_context)
+    del caches
+    a, _ = lm.decode_step(params, dense, tok, max_context)
+    b, _ = lm.decode_step_paged(params, paged, tok)
+    a, b = a.float().cpu(), b.float().cpu()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail("ring: non-finite decode logits")
+    return ((a - b).abs().max() / a.abs().max()).item()
+
+
+def phase_danube(cfg=ARCHS["h2o-danube-3-4b"]):
+    _reset_peak()
+    model, params = _init(cfg, 11, "ring", f"window {cfg.sliding_window}, "
+                          f"d_ff {cfg.d_ff}, ")
+    max_context = RING_PROMPT + RING_NEW + 2
+    pages = -(-max_context // PAGE)
+    eng = ServingEngine(
+        {cfg.name: TenantConfig(cfg, params, max_batch=RING_BATCH,
+                                max_context=max_context, paged=False)},
+        mode="mirage", base_kv_pages=2 * RING_BATCH * pages, page_size=PAGE,
+        device=DEVICE, keep_prefill_logits=True)
+    trace = tiny_trace([cfg.name], n_per_model=RING_BATCH,
+                       prompt_len=RING_PROMPT, max_new=RING_NEW,
+                       vocab=cfg.vocab_size, seed=0)
+    kernels.reset_launch_counts()
+    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
+    counts = kernels.launch_counts()
+    kinds = [k for _, k, _ in eng.events]
+    ring = model.impl._cache_len(max_context)
+    log(f"[ring] dense ring tenant ({ring}-slot ring, prompts of "
+        f"{RING_PROMPT} tokens): finished {len(eng.finished)} requests, "
+        f"{sum(len(r.generated) for r in eng.finished)} tokens in "
+        f"{eng.step_idx} steps; admit+prefill steps {t_pre:.3f} s, decode "
+        f"{dec_tokens} tokens in {t_dec:.3f} s = {dec_tokens / t_dec:.1f} "
+        f"tok/s; launches {counts}")
+    if len(eng.finished) != RING_BATCH or any(
+            len(r.generated) != RING_NEW for r in eng.finished):
+        fail(f"ring: not every request made {RING_NEW} tokens")
+    if "preempt" in kinds or "remap" in kinds:
+        fail(f"ring: the ample budget preempted or remapped: {kinds}")
+    if DEVICE == "cuda" and \
+            counts["flash_attention"] != RING_BATCH * cfg.num_layers:
+        fail(f"ring: flash_attention launched {counts['flash_attention']} "
+             f"times, expected {RING_BATCH * cfg.num_layers}")
+    del eng
+    gap = check_ring_against_paged(model, params, np.array(trace[0].prompt),
+                                   max_context)
+    log(f"[ring] one decode step at position {RING_PROMPT} (past the "
+        f"{cfg.sliding_window}-token window), dense ring against paged pool: "
+        f"max|d|/max|logit| = {gap:.3g} (tolerance {LOGIT_RTOL})")
+    if not gap <= LOGIT_RTOL:
+        fail(f"ring: dense ring and paged decode differ by {gap}")
+    log(f"[ring] peak memory {_peak() / 2**30:.2f} GiB")
+    del params, model
+    _free()
+    launches = Counter(counts)
+    launches.update(phase_dense_remap(cfg, "ring-remap", "flash_attention",
+                                      (12, 13)))
+    return launches
 
 
 # ------------------------------------------------------------------- main
@@ -1067,10 +1627,13 @@ def main() -> None:
     phase_device()
     phase_build()
     checked = phase_kernels()
-    launches = phase_serve()
-    phase_remap()
-    launches["ssd_scan"] = phase_xlstm()["ssd_scan"]
-    phase_xlstm_remap()
+    # launches summed over every serving phase's runs (each resets the
+    # counts just before its engine runs and reads them just after)
+    launches = Counter()
+    for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
+                  phase_moonshot, phase_jamba, phase_danube):
+        launches.update(phase())
+    log(f"[launches] every serving phase: {dict(launches)}")
     rows = []
     for name, (err, (ms, pms, bms, by, lib, _shape)) in checked.items():
         src, replaces = SOURCES[name]

@@ -1,13 +1,15 @@
-"""Model blocks: RMSNorm, RoPE, GQA attention, the SwiGLU FFN, the chunked
-SSD recurrence and the xLSTM mixers mLSTM and sLSTM (PyTorch counterpart of
+"""Model blocks: RMSNorm, RoPE, GQA attention (with its dense and ring
+decode caches), the SwiGLU and MoE FFNs, the chunked SSD recurrence and the
+mixers built on it (Mamba, mLSTM), and sLSTM (PyTorch counterpart of
 ``repro.models.blocks``).
 
 Conventions as in the JAX package: x is [B, S, D] (sequence) or [B, D]
 (decode); weights keep the JAX layouts (``wq`` [d, Hq, hd], ``wo`` [Hq, hd,
-d]); K/V are cached post-RoPE at absolute positions. A recurrent mixer's
-``fwd_seq`` returns its final state as its cache, and ``fwd_dec`` maps
-(x, state) to (out, new state). MoE, mamba and the attention block's
-dense decode wait for later slices (ROADMAP).
+d], the experts' ``w_in`` [E, d, f]); K/V are cached post-RoPE at absolute
+positions. A mixer's ``fwd_seq`` returns its cache (attention: the prompt's
+K/V; a recurrent mixer: its final state), and ``fwd_dec`` maps (x, state)
+to (out, new state). The cross-attention of enc-dec waits for a later
+slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models.attention_ops import decode_attention
 from repro_torch.models.common import Spec, dtype_of
 
 
@@ -96,6 +99,64 @@ class Attention:
         y = _einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
         return y, {"k": k, "v": v}
 
+    # ------------------------------------------------ dense and ring decode
+    def cache_len(self, cfg: ModelConfig, max_context: int) -> int:
+        if cfg.sliding_window:
+            return min(max_context, cfg.sliding_window)
+        return max_context
+
+    def init_state(self, cfg: ModelConfig, batch: int, max_context: int):
+        hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        s = self.cache_len(cfg, max_context)
+        dt = dtype_of(cfg)
+        return {
+            "k": Spec((batch, s, hkv, hd), ("batch", "kv_seq", None, None),
+                      dt, "zeros"),
+            "v": Spec((batch, s, hkv, hd), ("batch", "kv_seq", None, None),
+                      dt, "zeros"),
+        }
+
+    def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int):
+        """Prefill K/V [..., S, Hkv, hd] (any leading dims: the LM passes
+        them stacked [R, B, ...]) into a decode cache [..., cache_len, Hkv,
+        hd]. A ring (sliding-window) cache whose prompt fills it keeps the
+        last ``window`` tokens, token t at slot t % window."""
+        k, v = cache["k"], cache["v"]
+        s = k.shape[-3]
+        s_c = self.cache_len(cfg, max_context)
+        if cfg.sliding_window and s >= s_c:
+            last = s - s_c
+            ar = torch.arange(s_c, device=k.device)
+            take = (last + ar)[torch.argsort((last + ar) % s_c)]
+            return {"k": k.index_select(-3, take),
+                    "v": v.index_select(-3, take)}
+
+        def pad(a):
+            out = a.new_zeros(a.shape[:-3] + (s_c,) + a.shape[-2:])
+            out[..., :s, :, :] = a
+            return out
+        return {"k": pad(k), "v": pad(v)}
+
+    def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
+        """Decode one token. x [B, D]; state {k, v} [B, Sc, Hkv, hd];
+        shared: pos [B], slot [B], kv_pos [B, Sc], kv_valid [B, Sc]. The new
+        token's K/V row is written IN PLACE at ``slot`` (the JAX block
+        returns an updated copy), so the state it returns is empty: nothing
+        is left for the caller to write back."""
+        pos = shared["pos"]
+        q, k_new, v_new = self._qkv(p, x, cfg)
+        q = rope(q, pos, cfg.rope_theta)
+        k_new = rope(k_new, pos, cfg.rope_theta)
+        rows = torch.arange(x.shape[0], device=x.device)
+        slot = shared["slot"].long()
+        state["k"][rows, slot] = k_new
+        state["v"][rows, slot] = v_new
+        out = decode_attention(q, state["k"], state["v"], pos,
+                               shared["kv_pos"], shared["kv_valid"],
+                               window=cfg.sliding_window)
+        y = _einsum("bhk,hkd->bd", out, p["wo"]).to(x.dtype)
+        return y, {}
+
 
 # ---------------------------------------------------------------------------
 # dense FFN (SwiGLU)
@@ -120,6 +181,124 @@ class SwiGLU:
         # on the tensor cores (the JAX model widens w_out instead).
         return _einsum("...f,fd->...d", h.to(p["w_out"].dtype),
                        p["w_out"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: sort-gather dispatch into per-expert capacity slots, the expert
+# products as batched matmuls over the weights' own [E, ...] layout, and a
+# deterministic combine.
+# ---------------------------------------------------------------------------
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched product returned in f32, with ``_einsum``'s rounding."""
+    if a.dtype != b.dtype:
+        a, b = a.float(), b.float()
+    return torch.bmm(a, b).float()
+
+
+class MoE:
+    def specs(self, cfg: ModelConfig) -> Dict[str, Spec]:
+        m = cfg.moe
+        d, e, f = cfg.d_model, m.num_experts, m.d_expert
+        dt = dtype_of(cfg)
+        return {
+            "router": Spec((d, e), ("embed", None), torch.float32, fan_in=d),
+            "w_in": Spec((e, d, f), ("experts", "expert_mlp", "expert_ff"),
+                         dt, fan_in=d),
+            "w_gate": Spec((e, d, f), ("experts", "expert_mlp", "expert_ff"),
+                           dt, fan_in=d),
+            "w_out": Spec((e, f, d), ("experts", "expert_ff", "expert_mlp"),
+                          dt, fan_in=f),
+        }
+
+    @staticmethod
+    def _capacity(tokens_per_group: int, m) -> int:
+        lam = tokens_per_group * m.top_k / m.num_experts
+        c = int(math.ceil(lam * m.capacity_factor))
+        # Poisson +3 sigma floor (see the JAX block): keeps decode-scale
+        # token counts from dropping assignments
+        c3 = int(math.ceil(lam + 3.0 * math.sqrt(max(lam, 1e-9))))
+        return min(tokens_per_group, max(c, c3, m.min_capacity))
+
+    def route(self, p, xf: torch.Tensor, cfg: ModelConfig):
+        """Routing of the tokens xf [T, D]: the router's softmax ``probs``
+        [T, E] (f32), the top-k experts ``top_e`` [T, k], and the capacity
+        slots: ``disp`` [E * cap] (the source token of each slot, T for an
+        empty one), ``wcomb`` [E * cap] (its combine weight) and ``slot``
+        [T, k] (each assignment's slot in ascending order, E * cap where
+        capacity dropped it). The port has no mesh, so all tokens form one
+        group (the JAX block's g = 1)."""
+        m = cfg.moe
+        t = xf.shape[0]
+        e, k = m.num_experts, m.top_k
+        cap = self._capacity(t, m)
+        dev = xf.device
+        probs = torch.softmax(_einsum("td,de->te", xf, p["router"]), dim=-1)
+        top_p, top_e = torch.topk(probs, k, dim=-1)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        flat_e = top_e.reshape(t * k)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        # position within the expert = rank - first rank of that expert
+        first = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+        pos_in_e = torch.arange(t * k, device=dev) - first[sorted_e]
+        sorted_slot = torch.where(pos_in_e < cap, sorted_e * cap + pos_in_e,
+                                  e * cap)
+        # the spare column e * cap takes every dropped assignment; cut below
+        disp = torch.full((e * cap + 1,), t, dtype=torch.long, device=dev)
+        disp[sorted_slot] = order // k
+        wcomb = torch.zeros(e * cap + 1, dtype=top_p.dtype, device=dev)
+        wcomb[sorted_slot] = top_p.reshape(t * k)[order]
+        slot = torch.empty_like(sorted_slot)
+        slot[order] = sorted_slot
+        # a token's experts are distinct, so its slots rise with the expert
+        slot = slot.view(t, k).sort(dim=-1).values
+        return probs, top_e, disp[:-1], wcomb[:-1], slot, cap
+
+    def forward(self, p, x, cfg: ModelConfig):
+        """x [..., D] -> (y [..., D], probs [T, E], top_e [T, k]): the
+        layer's output and its routing, without the aux loss (the decode
+        paths discard it, as the JAX model's jit does).
+
+        The combine gathers each token's weighted expert outputs and adds
+        them in ascending expert order, the order in which the JAX CPU
+        scatter-add applies them; no atomics, so a CUDA call is
+        deterministic. Nothing here waits for the device."""
+        shape = x.shape
+        d = shape[-1]
+        xf = x.reshape(-1, d)
+        e = cfg.moe.num_experts
+        probs, top_e, disp, wcomb, slot, cap = self.route(p, xf, cfg)
+        xpad = torch.cat([xf, xf.new_zeros(1, d)])
+        xd = xpad[disp].view(e, cap, d)
+        h = _bmm(xd, p["w_in"])
+        g = _bmm(xd, p["w_gate"])
+        h = F.silu(g) * h
+        # bf16 weights: the hidden is rounded to bf16 before w_out, as in
+        # SwiGLU, so the product stays on the tensor cores
+        yd = _bmm(h.to(p["w_out"].dtype), p["w_out"]).to(x.dtype)
+        yd = yd.view(e * cap, d) * wcomb[:, None].to(yd.dtype)
+        yd = torch.cat([yd, yd.new_zeros(1, d)])       # row e * cap: dropped
+        parts = yd[slot]                               # [T, k, D]
+        out = parts[:, 0]
+        for j in range(1, cfg.moe.top_k):
+            out = out + parts[:, j]
+        return out.reshape(shape), probs, top_e
+
+    def __call__(self, p, x, cfg: ModelConfig, return_stats: bool = False):
+        """x [..., D] -> (y [..., D], aux) (+ the per-expert assignment
+        counts [E], pre-capacity, with ``return_stats``), as the JAX
+        block."""
+        out, probs, top_e = self.forward(p, x, cfg)
+        experts = torch.arange(cfg.moe.num_experts, device=x.device)
+        # load-balance aux loss (Switch): E * sum(frac_tokens * frac_probs)
+        me = probs.mean(dim=0)
+        ce = (top_e[:, :1] == experts).float().mean(dim=0)
+        aux = cfg.moe.num_experts * torch.sum(me * ce)
+        if return_stats:
+            counts = (top_e.reshape(-1, 1) == experts).float().sum(dim=0)
+            return out, aux, counts
+        return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +364,106 @@ def ssd_decode_step(q, k, v, log_a, state):
     state = state * a + _einsum("bhk,bhv->bhkv", k.float(), v.float())
     y = _einsum("bhk,bhkv->bhv", q.float(), state)
     return y, state
+
+
+# ---------------------------------------------------------------------------
+# Mamba mixer (SSD / mamba-2 style: a scalar decay per head), the JAX
+# package's TPU adaptation of the mamba baseline.
+# ---------------------------------------------------------------------------
+
+class Mamba:
+    HEAD_DIM = 64
+
+    def dims(self, cfg: ModelConfig):
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        return d_in, d_in // self.HEAD_DIM, s.d_state
+
+    def specs(self, cfg: ModelConfig) -> Dict[str, Spec]:
+        d = cfg.d_model
+        d_in, h, n = self.dims(cfg)
+        dt = dtype_of(cfg)
+        f32 = torch.float32
+        return {
+            "in_proj": Spec((d, 2 * d_in), ("embed", "ssm_inner"), dt,
+                            fan_in=d),
+            "conv_w": Spec((cfg.ssm.d_conv, d_in), ("conv", "ssm_inner"), dt,
+                           "small_normal"),
+            "bc_proj": Spec((d, 2 * n), ("embed", None), dt, fan_in=d),
+            "dt_proj": Spec((d, h), ("embed", "heads"), dt, fan_in=d),
+            "dt_bias": Spec((h,), ("heads",), f32, "zeros"),
+            "a_log": Spec((h,), ("heads",), f32, "zeros"),
+            "d_skip": Spec((h,), ("heads",), f32, "ones"),
+            "out_proj": Spec((d_in, d), ("ssm_inner", "embed"), dt,
+                             fan_in=d_in),
+        }
+
+    def init_state(self, cfg: ModelConfig, batch: int, _max_context: int):
+        d_in, h, n = self.dims(cfg)
+        return {
+            "ssm": Spec((batch, h, n, self.HEAD_DIM),
+                        ("batch", None, None, None), torch.float32, "zeros"),
+            "conv": Spec((batch, cfg.ssm.d_conv - 1, d_in),
+                         ("batch", None, "ssm_inner"), dtype_of(cfg),
+                         "zeros"),
+        }
+
+    def _proj_gates(self, p, x):
+        d_in = p["out_proj"].shape[0]
+        xz = _einsum("...d,de->...e", x, p["in_proj"]).to(x.dtype)
+        return xz[..., :d_in], xz[..., d_in:]
+
+    def _ssm_inputs(self, p, x, xc, cfg):
+        """B/C, the step dt and the log decay of x [..., D], and the values
+        v = xh * dt of the conv output xc [..., d_in] (f32)."""
+        n = cfg.ssm.d_state
+        bc = _einsum("...d,dn->...n", x, p["bc_proj"]).to(x.dtype)
+        dt = F.softplus(_einsum("...d,dh->...h", x, p["dt_proj"])
+                        + p["dt_bias"])
+        log_a = dt * -torch.exp(p["a_log"])
+        xh = xc.reshape(xc.shape[:-1] + (-1, self.HEAD_DIM))
+        return bc[..., :n], bc[..., n:], log_a, xh, xh * dt[..., None]
+
+    def _out(self, p, x, y, xh, z):
+        y = y + xh.float() * p["d_skip"][:, None]
+        y = y.reshape(z.shape).to(x.dtype) * F.silu(z)
+        return _einsum("...e,ed->...d", y, p["out_proj"]).to(x.dtype)
+
+    def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
+        """The causal depthwise conv, then the SSD recurrence over the
+        prompt: on CUDA the hand-written ``ssd_scan`` kernel, on the CPU its
+        plain version (the JAX model calls the same plain ``ssd_chunked``
+        at blocks.py:490). Returns (out, {"ssm", "conv"}): the final state
+        and the conv's last d_conv - 1 inputs."""
+        b, t, _ = x.shape
+        d_conv = cfg.ssm.d_conv
+        _, h, n = self.dims(cfg)
+        xi, z = self._proj_gates(p, x)
+        conv_tail = xi[:, -(d_conv - 1):, :]
+        xpad = F.pad(xi, (0, 0, d_conv - 1, 0))
+        xc = sum(xpad[:, i:i + t, :] * p["conv_w"][i][None, None, :]
+                 for i in range(d_conv))
+        xc = F.silu(xc)
+        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(p, x, xc, cfg)
+        # the kernel takes dense [B, T, H, n] q/k; JAX broadcasts them
+        q = c_mat[:, :, None, :].expand(b, t, h, n).contiguous()
+        k = b_mat[:, :, None, :].expand(b, t, h, n).contiguous()
+        y, final = ssd_scan(q, k, v.contiguous(), log_a.contiguous(),
+                            chunk=cfg.ssm.chunk_size)
+        return self._out(p, x, y, xh, z), {"ssm": final, "conv": conv_tail}
+
+    def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
+        bsz = x.shape[0]
+        _, h, n = self.dims(cfg)
+        xi, z = self._proj_gates(p, x)                 # [B, d_in]
+        window = torch.cat([state["conv"], xi[:, None, :]], dim=1)
+        xc = F.silu(_einsum("bcd,cd->bd", window, p["conv_w"]).to(x.dtype))
+        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(p, x, xc, cfg)
+        q = c_mat[:, None, :].expand(bsz, h, n)
+        k = b_mat[:, None, :].expand(bsz, h, n)
+        y, new_ssm = ssd_decode_step(q, k, v, log_a, state["ssm"])
+        return self._out(p, x, y, xh, z), {"ssm": new_ssm,
+                                           "conv": window[:, 1:]}
 
 
 # ---------------------------------------------------------------------------

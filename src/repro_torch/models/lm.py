@@ -1,6 +1,10 @@
 """Decoder-only LM over a repeating pattern of blocks (PyTorch counterpart
-of ``repro.models.lm``): attention stacks decode against the paged KV pool,
-recurrent (xLSTM: mLSTM + sLSTM) stacks against a dense per-slot state.
+of ``repro.models.lm``): dense (llama, granite, phi3, danube), MoE
+(moonshot, kimi), hybrid (jamba: Mamba + attention, MoE) and recurrent
+(xLSTM) stacks. Attention stacks decode against the paged KV pool or, like
+every other stack, against a dense per-slot decode state: each attention
+layer's K/V cache (a ring of ``sliding_window`` slots for a windowed
+config), each recurrent mixer's state.
 
 Parameters keep the JAX layout: stacked over the R repeats of the block
 pattern ([R, ...] leaves; ``params["blocks"]`` is a tuple with one tree per
@@ -8,14 +12,13 @@ pattern position), so one repeat is MIRAGE's remap unit and a ``fetch(r)``
 function supplies repeat r's parameters (resident on device, or streamed
 from pinned host memory by ``core.transfer_engine``).
 
-The paged state's pools and the recurrent decode state are updated IN PLACE
+The paged state's pools and the dense decode state are updated IN PLACE
 (the JAX functions return new arrays): a full-width pool or state is
 gigabytes, and the engine never needs the old one. Functions still return
 the state dict, as in the JAX package.
 
-Mamba and MoE blocks, the attention block's dense and ring-buffer decode
-caches, and prefix embeddings (VLM) raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Enc-dec (whisper) and VLM (llava: a prefix of patch embeddings) configs
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -29,18 +32,14 @@ from repro_torch.kernels.paged_attention.ops import (
     paged_decode_attention, paged_prefill_attention,
 )
 from repro_torch.models.blocks import (
-    MLSTM, SLSTM, Attention, SwiGLU, _einsum, rms_norm, rope,
+    MLSTM, SLSTM, Attention, Mamba, MoE, SwiGLU, _einsum, rms_norm, rope,
 )
 from repro_torch.models.common import (
     Spec, dtype_of, stack_specs, tree_init, tree_map,
 )
 
-_ROADMAP_MODELS = ("ported in a later slice: ROADMAP queue 1, 'Jamba and "
-                   "danube' (Mamba, MoE, dense and ring attention decode) "
-                   "and 'Enc-dec and VLM'")
-_ROADMAP_DENSE_ATTN = ("dense (paged=False) and ring-buffer attention decode "
-                       "is ported in a later slice: ROADMAP queue 1, 'Jamba "
-                       "and danube'")
+_ROADMAP_ENC_DEC_VLM = ("enc-dec and VLM configs are ported in a later "
+                        "slice: ROADMAP queue 1, item 2, 'Enc-dec and VLM'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +48,11 @@ class LayerDef:
     ffn: str     # dense | moe | none
 
 
-MIXERS = {"attn": Attention(), "mlstm": MLSTM(), "slstm": SLSTM()}
+MIXERS = {"attn": Attention(), "mamba": Mamba(), "mlstm": MLSTM(),
+          "slstm": SLSTM()}
 _ATTN = MIXERS["attn"]
 _SWIGLU = SwiGLU()
+_MOE = MoE()
 
 
 def layer_defs(cfg: ModelConfig) -> List[LayerDef]:
@@ -94,7 +95,7 @@ def _layer_specs(ld: LayerDef, cfg: ModelConfig) -> Dict[str, Any]:
     }
     if ld.ffn != "none":
         specs["norm2"] = Spec((d,), ("norm",), torch.float32, "ones")
-        specs["ffn"] = _SWIGLU.specs(cfg)
+        specs["ffn"] = (_MOE if ld.ffn == "moe" else _SWIGLU).specs(cfg)
     return specs
 
 
@@ -117,15 +118,10 @@ class LM:
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self.pattern, self.repeats = block_pattern(cfg)
-        for ld in self.pattern:
-            if ld.mixer not in MIXERS or ld.ffn not in ("dense", "none"):
-                raise NotImplementedError(
-                    f"{cfg.name}: block {ld} is " + _ROADMAP_MODELS)
         if cfg.is_encoder_decoder or cfg.num_image_patches:
-            raise NotImplementedError(f"{cfg.name}: " + _ROADMAP_MODELS)
-        # attention-free stacks decode against a dense recurrent state
-        self.recurrent = all(ld.mixer != "attn" for ld in self.pattern)
+            raise NotImplementedError(f"{cfg.name}: " + _ROADMAP_ENC_DEC_VLM)
+        self.pattern, self.repeats = block_pattern(cfg)
+        # only attention stacks can decode against the paged KV pool
         self.attention_only = all(ld.mixer == "attn" for ld in self.pattern)
 
     # ------------------------------------------------------------------ specs
@@ -165,45 +161,54 @@ class LM:
         return _einsum("bd,dv->bv", h, self._out_w(params))
 
     # ----------------------------------------------------------------- layers
-    def _ffn(self, ld: LayerDef, p, x):
+    def _ffn(self, ld: LayerDef, p, x, aux=None):
+        """x + the layer's FFN of x. An MoE layer appends its load-balance
+        loss to the list ``aux`` where one is given (the sequence forward);
+        the decode paths give none and skip computing it."""
         if ld.ffn == "none":
             return x
-        return x + _SWIGLU(p["ffn"], rms_norm(x, p["norm2"], self.cfg.norm_eps))
+        h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
+        if ld.ffn == "dense":
+            return x + _SWIGLU(p["ffn"], h)
+        if aux is None:
+            return x + _MOE.forward(p["ffn"], h, self.cfg)[0]
+        y, a = _MOE(p["ffn"], h, self.cfg)
+        aux.append(a)
+        return x + y
 
     # ------------------------------------------------------------ seq forward
     def fwd_seq(self, params, x, ctx, collect_cache: bool = False):
         """x [B,S,D] -> (x, aux_loss, caches | None); caches is a tuple with
         one cache tree per pattern position, its leaves stacked over the
         repeats ([R, ...]), as in the JAX LM: {"k", "v"} [R, B, S, Hkv, hd]
-        for attention, the final recurrent state for mLSTM/sLSTM."""
+        for attention, the final recurrent state for the recurrent mixers.
+        aux_loss sums the MoE layers' load-balance losses."""
         cfg = self.cfg
         fetch = _index_fetch(params)
         per_pos: List[list] = [[] for _ in self.pattern]
+        auxes: List[torch.Tensor] = []
         for r in range(self.repeats):
             for i, (ld, p) in enumerate(zip(self.pattern, fetch(r))):
                 h, cache = MIXERS[ld.mixer].fwd_seq(
                     p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), ctx,
                     cfg)
-                x = self._ffn(ld, p, x + h)
+                x = self._ffn(ld, p, x + h, auxes)
                 if collect_cache:
                     per_pos[i].append(cache)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = sum(auxes, torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
         caches = tuple(
             tree_map(lambda *xs: torch.stack(xs), *c) for c in per_pos) \
             if collect_cache else None
         return x, aux, caches
 
     # ------------------------------------------------------- decode state mgmt
-    def _require_recurrent(self, what: str) -> None:
-        if not self.recurrent:
-            raise NotImplementedError(
-                f"{self.cfg.name}: {what}: " + _ROADMAP_DENSE_ATTN)
-
     def decode_state_specs(self, batch: int, max_context: int) -> Dict[str, Any]:
-        """Spec tree of the dense decode state: ``pos`` [B] and, per pattern
-        position, the mixer's state stacked over the repeats ([R, B, ...])."""
-        self._require_recurrent("decode_state_specs")
-        return {
+        """Spec tree of the dense decode state: ``pos`` [B]; per pattern
+        position, the mixer's state stacked over the repeats ([R, B, ...]);
+        and, for a sliding-window config, ``kv_pos`` [B, window]: the
+        position each ring slot holds (-1: empty)."""
+        st: Dict[str, Any] = {
             "pos": Spec((batch,), ("batch",), torch.int32, "zeros"),
             "blocks": tuple(
                 stack_specs(
@@ -212,30 +217,58 @@ class LM:
                     self.repeats)
                 for ld in self.pattern),
         }
+        if self.cfg.sliding_window:
+            st["kv_pos"] = Spec((batch, self._cache_len(max_context)),
+                                ("batch", "kv_seq"), torch.int32, "neg_ones")
+        return st
 
     def init_decode_state(self, batch: int, max_context: int, device="cuda"):
         return tree_map(lambda s: s.materialize(None, device),
                         self.decode_state_specs(batch, max_context))
 
+    def _cache_len(self, max_context: int) -> int:
+        return _ATTN.cache_len(self.cfg, max_context)
+
     def state_from_prefill(self, caches, positions_end, max_context: int):
-        """Build the decode state from fwd_seq caches (stacked [R, ...]): a
-        recurrent mixer's cache IS its decode state."""
-        self._require_recurrent("state_from_prefill")
-        return {"pos": positions_end.to(torch.int32),
-                "blocks": tuple({"mixer": cache} for cache in caches)}
+        """Build the decode state from fwd_seq caches (stacked [R, ...]): an
+        attention cache is padded (or laid out as a ring) to the decode
+        cache's length; a recurrent mixer's cache IS its decode state."""
+        cfg = self.cfg
+        blocks = tuple(
+            {"mixer": _ATTN.seq_cache_to_state(cfg, cache, max_context)
+             if ld.mixer == "attn" else cache}
+            for ld, cache in zip(self.pattern, caches))
+        pe = positions_end.to(torch.int32)
+        st = {"pos": pe, "blocks": blocks}
+        if cfg.sliding_window:
+            w = self._cache_len(max_context)
+            idx = torch.arange(w, dtype=torch.int32, device=pe.device)[None]
+            kv_pos = torch.where(idx < pe[:, None], idx, -1)
+            # ring layout when the prefill is longer than the window: slot
+            # t % w holds token t
+            base = torch.clamp(pe - w, min=0)[:, None]
+            tok = base + (idx - base % w) % w
+            ring = torch.where(tok < pe[:, None], tok, -1)
+            st["kv_pos"] = torch.where((pe > w)[:, None], ring, kv_pos)
+        return st
 
     def _decode_shared(self, state, max_context: int):
         """Decode positions and validity shared by all layers (the dense
-        attention cache reads them; recurrent mixers ignore them)."""
-        if self.cfg.sliding_window:
-            raise NotImplementedError(
-                f"{self.cfg.name}: sliding-window ring: " + _ROADMAP_DENSE_ATTN)
+        attention caches read them; recurrent mixers ignore them). A ring's
+        ``kv_pos`` takes the new token's position at its slot, in place."""
         pos = state["pos"]
         b = pos.shape[0]
-        slot = torch.clamp(pos, max=max_context - 1)
-        kv_pos = torch.arange(max_context, dtype=torch.int32,
-                              device=pos.device)[None].expand(b, max_context)
-        kv_valid = kv_pos <= pos[:, None]
+        s_c = self._cache_len(max_context)
+        if self.cfg.sliding_window:
+            slot = pos % s_c
+            kv_pos = state["kv_pos"]
+            kv_pos[torch.arange(b, device=pos.device), slot.long()] = pos
+            kv_valid = kv_pos >= 0
+        else:
+            slot = torch.clamp(pos, max=s_c - 1)
+            kv_pos = torch.arange(s_c, dtype=torch.int32,
+                                  device=pos.device)[None].expand(b, s_c)
+            kv_valid = kv_pos <= pos[:, None]
         return {"pos": pos, "slot": slot, "kv_pos": kv_pos,
                 "kv_valid": kv_valid}
 
@@ -244,10 +277,12 @@ class LM:
                     fetch=None):
         """One token for every sequence against the dense decode state.
         Returns (logits [B, V], state); each layer's state is overwritten in
-        place. ``fetch(r)`` returns repeat r's layer-params tuple (default:
-        an index into ``params['blocks']``; MIRAGE passes one that streams
-        remapped repeats from host). Call order is r = 0, 1, ..., R-1."""
-        self._require_recurrent("decode_step")
+        place with what its mixer returns (attention returns nothing: its
+        cache takes the new row where it lies, so no layer copies a whole
+        cache). ``fetch(r)`` returns repeat r's
+        layer-params tuple (default: an index into ``params['blocks']``;
+        MIRAGE passes one that streams remapped repeats from host). Call
+        order is r = 0, 1, ..., R-1."""
         cfg = self.cfg
         x = self.embed(params, tokens[:, None])[:, 0]
         shared = self._decode_shared(state, max_context)
@@ -267,7 +302,7 @@ class LM:
     def _require_attention(self, what: str) -> None:
         if not self.attention_only:
             raise ValueError(f"{self.cfg.name}: {what} needs an attention "
-                             "stack (recurrent tenants are dense)")
+                             "stack (Mamba and recurrent stacks are dense)")
 
     def decode_step_paged(self, params, state, tokens, fetch=None):
         """Decode one token per batch row against the elastic paged pool.
@@ -382,7 +417,6 @@ class LM:
     def prefill(self, params, tokens, max_context: int):
         """tokens [B, S] (every row S tokens long) -> (last_logits [B, V],
         dense decode state)."""
-        self._require_recurrent("prefill")
         b, s = tokens.shape
         x = self.embed(params, tokens)
         positions = torch.arange(s, dtype=torch.int32,

@@ -22,15 +22,14 @@ Output-equivalence of mirage vs vllm modes is what the integration tests
 assert — remapping must never change results.
 
 The port runs eagerly (no jit cache). It serves paged attention-stack
-tenants and dense (``paged=False``) recurrent tenants (xLSTM: mLSTM +
-sLSTM), whose per-slot decode state is the recurrent state; a remapped
-dense tenant streams its cycling repeats (one repeat = one pattern period
-of layers) from pinned host memory exactly as a paged one does. Dense
-attention tenants (dense and ring-buffer KV decode), Mamba and MoE stacks,
-enc-dec and VLM inputs, and the fleet hooks (``export_prefix``/
-``import_prefix``/``prefix_snapshot``/``withdraw_pending``/
-``drain_for_removal``) raise ``NotImplementedError``: they wait for later
-slices (ROADMAP).
+tenants (dense or MoE FFN) and dense (``paged=False``) tenants of any
+stack: attention (a K/V cache per slot, a ring for a sliding window),
+hybrid Mamba + attention (jamba) and recurrent (xLSTM); a remapped dense
+tenant streams its cycling repeats (one repeat = one pattern period of
+layers) from pinned host memory exactly as a paged one does. Enc-dec and
+VLM configs and the fleet hooks (``export_prefix``/``import_prefix``/
+``prefix_snapshot``/``withdraw_pending``/``drain_for_removal``) raise
+``NotImplementedError``: they wait for later slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -116,8 +115,8 @@ class TenantConfig:
     # kernels/paged_attention (attention-stack archs only). Pool pages map
     # 1:1 to allocator page ids; a remap tier switch that grows the
     # allocator grows the pool (the donated-memory segments become pages).
-    # paged=False: a dense per-slot decode state; the port serves it for
-    # recurrent stacks (xLSTM) and raises for attention stacks.
+    # paged=False: a dense per-slot decode state (attention K/V caches,
+    # recurrent and Mamba states), for any stack.
     paged: bool = False
 
 
@@ -128,13 +127,8 @@ class Tenant:
                  device):
         self.name = name
         self.cfg = tc.cfg
-        self.model = build_model(tc.cfg)   # raises on unported blocks
-        lm = self.model.impl
-        if not tc.paged and not lm.recurrent:
-            raise NotImplementedError(
-                f"{name}: paged=False on an attention stack: dense and "
-                f"ring-buffer attention decode {_LATER}")
-        if tc.paged and not lm.attention_only:
+        self.model = build_model(tc.cfg)   # raises on enc-dec and VLM
+        if tc.paged and not self.model.impl.attention_only:
             raise ValueError(f"paged mode needs an attention stack: {name}")
         self.params = tc.params
         self.device = torch.device(device)
@@ -935,7 +929,7 @@ class ServingEngine:
     @staticmethod
     def _decode_fn(t: Tenant, tokens, fetch=None):
         """One decode step of tenant ``t``: against its paged pool, or
-        against its dense recurrent state (both updated in place)."""
+        against its dense decode state (both updated in place)."""
         if t.paged:
             return t.model.impl.decode_step_paged(t.params, t.state, tokens,
                                                   fetch=fetch)

@@ -6,6 +6,7 @@ import dataclasses
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -59,6 +60,92 @@ def test_xlstm_serve_and_remap_phases_run(on_cpu, capsys):
     assert "prefill of P-1 and one decode step" in out
     assert "1 remap and" in out
     assert "generated tokens identical to the ample-budget run" in out
+
+
+def _bf16(arch, layers):
+    return dataclasses.replace(scaled_config(ARCHS[arch], num_layers=layers),
+                               dtype="bfloat16")
+
+
+@pytest.fixture
+def small_new_phases(on_cpu, monkeypatch):
+    for name, value in (("MOE_TOKENS", 48), ("RING_BATCH", 2),
+                        ("RING_PROMPT", 80), ("RING_NEW", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_moe_phase_runs(small_new_phases, capsys):
+    """moonshot (MoE on every layer) as a paged tenant, bf16."""
+    launches = chip_smoke.phase_moonshot(
+        _bf16("moonshot-v1-16b-a3b", 2))
+    assert set(launches) == set(chip_smoke.SOURCES)
+    out = capsys.readouterr().out
+    assert "[moe] MoE layer, 48 tokens" in out
+    assert "tokens with another top-2 set 0" in out
+    assert "[moe] no remap on the card" in out
+    assert out.count("[moe] chunk=") == 2
+    assert "finished 8 requests" in out
+
+
+def test_hybrid_phase_runs(small_new_phases, capsys):
+    """jamba (Mamba + attention, MoE) as a dense tenant: 8 layers, two
+    repeats of the scaled 4-layer pattern, bf16."""
+    counts = chip_smoke.phase_jamba(_bf16("jamba-v0.1-52b", 8))
+    assert counts["ssd_scan"] == counts["flash_attention"] == 0   # CPU
+    out = capsys.readouterr().out
+    assert "[hybrid] Mamba layer, prefill of 24 tokens and 4 decode" in out
+    assert "[hybrid] MoE layer, 48 tokens" in out
+    assert "[hybrid] dense tenant: finished 8 requests" in out
+    assert "(6 Mamba and 2 attention layers a prompt)" in out
+
+
+def test_ring_phase_runs(small_new_phases, capsys):
+    """danube's sliding window (64 slots scaled) with 80-token prompts, then
+    the two-tenant remap; bf16."""
+    chip_smoke.phase_danube(_bf16("h2o-danube-3-4b", 2))
+    out = capsys.readouterr().out
+    assert "[ring] dense ring tenant (64-slot ring, prompts of 80 tokens)" \
+        in out
+    assert "finished 2 requests" in out
+    assert "one decode step at position 80 (past the 64-token window)" in out
+    assert "[ring-remap] 1 remap and" in out
+    assert "generated tokens identical to the ample-budget run" in out
+
+
+@pytest.mark.parametrize("shape", sorted(chip_smoke.SHAPES))
+def test_phase2_shapes_fit_their_tables_and_match_the_served_models(shape):
+    """Phase 2's moonshot and danube shapes: every decode context and
+    prefill chunk lies inside its page table, and they are the served
+    configs' head shapes (danube's timed decode and chunk past its
+    window where it has one)."""
+    hq, hkv, d, window, b, lens, n, starts, s = chip_smoke.SHAPES[shape]
+    cfg = ARCHS["moonshot-v1-16b-a3b" if shape == "moonshot"
+                else "h2o-danube-3-4b"]
+    assert (hq, hkv, d) == (cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim)
+    assert window in (0, cfg.sliding_window) and len(lens) == b
+    assert max(lens) <= n * chip_smoke.PAGE
+    assert max(starts) + 256 <= n * chip_smoke.PAGE
+    if window:
+        assert lens[0] > window and starts[-1] + 256 > window and s > window
+
+
+@pytest.mark.parametrize("window", [0, 4096])
+def test_row_err_sees_a_one_tile_fault(window):
+    """Phase 2's row check at danube's flash shape (4608 tokens, head dim
+    120; two heads here): the reference rounded to bf16 passes it, and the
+    output with the window edge one 64-key tile off (the last row leaves
+    out its first tile) fails it by far."""
+    from repro_torch.models import attention_ops as plain
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4608, 2, 120))
+                                .astype(np.float32)) for _ in range(3))
+    ref = plain.flash_attention(q, k, v, window=window)
+    fault = plain.flash_attention(q, k, v, window=(window or 4608) - 64)
+    limit = chip_smoke.ROW_RTOL[torch.bfloat16]
+    assert chip_smoke.row_err(ref.to(torch.bfloat16), ref) < limit / 2
+    assert chip_smoke.row_err(fault, ref) > 5 * limit
 
 
 def test_ssd_work_counts_the_ragged_chunk():

@@ -117,31 +117,31 @@ def test_engine_matches_jax_engine(weights, case):
 
 
 def test_unported_paths_raise(weights):
-    """paged=False serves recurrent stacks now (tests/test_torch_engine_
-    xlstm.py); on an attention stack, a Mamba stack and an MoE stack it
-    still raises, naming the ROADMAP item, as do the fleet hooks."""
+    """paged=False serves every decoder-only stack now (attention, Mamba,
+    MoE: tests/test_torch_engine_hybrid.py); enc-dec (whisper) and VLM
+    (llava) configs still raise, naming the ROADMAP item, as do the fleet
+    hooks; paged=True on a stack with Mamba layers is refused (the JAX
+    engine asserts the same)."""
     cfg, jp, tcfg, tp = weights["A"]
-    with pytest.raises(NotImplementedError, match="paged=False.*ROADMAP"):
-        ServingEngine({"A": TenantConfig(tcfg, tp, paged=False)},
-                      device="cpu")
     eng = ServingEngine({"A": TenantConfig(tcfg, tp, paged=True)},
                         device="cpu")
     for hook, args in (("export_prefix", ("A", [1], 1)),
                        ("import_prefix", ("A", [1], 1)),
                        ("prefix_snapshot", ()), ("withdraw_pending", ()),
                        ("drain_for_removal", ())):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(eng, hook)(*args)
-    jamba = tcfgs.scaled_config(tcfgs.ARCHS["jamba-v0.1-52b"], num_layers=4)
-    mamba = dataclasses.replace(jamba, family="ssm", attn_period=0, moe=None)
-    moe = tcfgs.scaled_config(tcfgs.ARCHS["moonshot-v1-16b-a3b"],
-                              num_layers=2)
-    for unported, what in ((mamba, "mamba"), (moe, "moe")):
+    for arch in ("whisper-medium", "llava-next-34b"):
+        unported = tcfgs.scaled_config(tcfgs.ARCHS[arch], num_layers=2)
         for paged in (False, True):
             with pytest.raises(NotImplementedError,
-                               match=f"{what}.*ROADMAP"):
-                ServingEngine({"M": TenantConfig(unported, tp, paged=paged)},
+                               match="ROADMAP queue 1, item 2"):
+                ServingEngine({"W": TenantConfig(unported, tp, paged=paged)},
                               device="cpu")
+    jamba = tcfgs.scaled_config(tcfgs.ARCHS["jamba-v0.1-52b"], num_layers=4)
+    with pytest.raises(ValueError, match="needs an attention stack"):
+        ServingEngine({"J": TenantConfig(jamba, tp, paged=True)},
+                      device="cpu")
 
 
 def test_prefill_logits_kept_per_request_agree_across_prefill_paths(weights):

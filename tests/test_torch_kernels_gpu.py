@@ -1,17 +1,26 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on a
 CUDA device (skipped elsewhere), at the kernel test cases' shapes plus head
-dims that exercise the tensor-core path's padding, and the SSD scan at
-chip_smoke.py's shapes (xLSTM, a ragged T, Mamba widths) plus the cases of
-tests/test_ssd_kernel.py. Imports neither JAX nor ``repro``, so it runs on
+dims that exercise the tensor-core path's padding, the served models'
+shapes (danube's head dim 120 with its window, moonshot's MHA; there
+also row by row, a check that a kernel leaving out one key tile fails),
+and the
+SSD scan at chip_smoke.py's shapes (xLSTM, a ragged T, Mamba widths) plus
+the cases of tests/test_ssd_kernel.py; and the MoE layer's determinism. Imports neither JAX nor ``repro``, so it runs on
 a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import ROW_RTOL, row_err  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
@@ -257,6 +266,91 @@ def test_flash_kernel_row_without_keys_is_zero(cuda, dt):
     out = flash_ops.flash_attention(q, k, v, causal=True, window=50)
     assert torch.equal(out[:, 149:], torch.zeros_like(out[:, 149:]))
     assert out[:, :149].abs().amax() > 0
+
+
+# (Hq, Hkv, D, window): danube (head dim 120, with and without its 4096-token
+# window) and moonshot (MHA: Hq = Hkv = 16, G = 1)
+SERVED = [(32, 8, 120, 0), (32, 8, 120, 4096), (16, 16, 128, 0)]
+
+
+def _served_calls(rng, dt, dev, case):
+    """(name, keys, call(window)) of flash over a 4608-token prompt, paged
+    decode past the window and paged prefill chunks past it, each at the
+    served shape ``case``; ``keys`` is the longest row's key count."""
+    hq, hkv, d, _ = case
+    s, page, n, b = 4608, 16, 296, 3
+    q = _randn(rng, (1, s, hq, d), dt, dev)
+    k = _randn(rng, (1, s, hkv, d), dt, dev)
+    v = _randn(rng, (1, s, hkv, d), dt, dev)
+    qd, kp, vp, pt, _ = _decode_case(rng, dt, dev, b, n, [0] * b, page,
+                                     hq, hkv, d)
+    ctx = torch.tensor([4609, 4736, 4097], dtype=torch.int32, device=dev)
+    qp = _randn(rng, (b, 200, hq, d), dt, dev)
+    start = torch.tensor([4400, 4000, 0], dtype=torch.int32, device=dev)
+    pre = (qp, kp, vp, pt, start, start + 200)
+    return [("flash", s, lambda ops, w: ops.flash_attention(q, k, v,
+                                                            window=w)),
+            ("decode", 4736, lambda ops, w: ops.paged_decode_attention(
+                qd, kp, vp, pt, ctx, window=w)),
+            ("prefill", 4600, lambda ops, w: ops.paged_prefill_attention(
+                *pre, window=w))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED, ids=["d120", "d120_window",
+                                              "mha"])
+def test_kernels_at_the_served_models_shapes(cuda, dt, case):
+    """Flash over a 4608-token prompt, paged decode past the window and a
+    paged prefill chunk past it, against their plain versions: within TOL
+    and, row by row, within ROW_RTOL of the row's largest value (an output
+    row over ~4096 keys is ~0.03, smaller than TOL's bf16 limit)."""
+    window = case[3]
+    for name, _, call in _served_calls(np.random.default_rng(11), dt, cuda,
+                                       case):
+        out = call(flash_ops if name == "flash" else paged_ops, window)
+        ref = call(plain, window)
+        assert _err(out, ref) < TOL[dt], name
+        assert row_err(out, ref) < ROW_RTOL[dt], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SERVED, ids=["d120", "d120_window",
+                                              "mha"])
+def test_served_shape_check_sees_a_one_tile_fault(cuda, case):
+    """The kernels run with the window edge one 64-key tile off (the
+    longest row leaves out its first tile), held against the plain version
+    at the right window, fail the row check at the served shapes."""
+    dt = torch.bfloat16
+    window = case[3]
+    for name, keys, call in _served_calls(np.random.default_rng(11), dt,
+                                          cuda, case):
+        fault = call(flash_ops if name == "flash" else paged_ops,
+                     (window or keys) - 64)
+        assert row_err(fault, call(plain, window)) > ROW_RTOL[dt], name
+
+
+@pytest.mark.gpu
+def test_moe_is_bitwise_reproducible(cuda):
+    """moonshot's MoE layer at full width on 512 tokens, twice: the combine
+    adds each token's expert outputs in a fixed order (no atomics)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.blocks import MoE
+    from repro_torch.models.common import tree_init
+
+    cfg = ARCHS["moonshot-v1-16b-a3b"]
+    moe = MoE()
+    p = tree_init(moe.specs(cfg), torch.Generator(device=cuda).manual_seed(0),
+                  cuda)
+    x = torch.randn(512, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    a, aux_a, counts_a = moe(p, x, cfg, return_stats=True)
+    b, aux_b, counts_b = moe(p, x, cfg, return_stats=True)
+    assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert torch.equal(counts_a, counts_b)
+    assert counts_a.sum().item() == 512 * cfg.moe.top_k
 
 
 @pytest.mark.gpu
