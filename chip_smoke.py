@@ -17,7 +17,13 @@ no CUDA device or any phase fails. Phases:
    attention kernels at phase 7's moonshot shape (Hq = Hkv = 16, G = 1)
    and at phase 9's danube shapes (D 120, with and without the 4096-token
    window, a 4608-token prompt), there also row by row within 1e-4 (f32)
-   and 2e-2 (bf16) of the row's largest value; ssd_scan against its plain version at
+   and 2e-2 (bf16) of the row's largest value; flash likewise at phases
+   10-12's shapes (``FLASH_SHAPES``: whisper's bidirectional encoder over
+   1500 frames, its decoder's causal self-attention and its cross-attention
+   of 448 rows against 1500, the same at its engine's one request of 32
+   frames and 416 tokens, llava's causal GQA 56/8 prefill of 2880 patch
+   rows and 512 tokens), timed beside an SDPA call with the same mask;
+   ssd_scan against its plain version at
    xLSTM width (T 512, H 4, dk 512, dv 513, bf16 q/k), at a ragged T 509
    and at Mamba's widths (H 128, dk 16, dv 64), within 1e-4 * max(1,
    max|plain|) for y and the final state, and the state continuation
@@ -62,8 +68,22 @@ no CUDA device or any phase fails. Phases:
    (the prefill wraps the ring), 16 new tokens; one decode step past the
    window against the paged pool (paged decode kernel); then phase 6's
    remap with two danube tenants.
-10. the kernels line (JSON; launches summed over phases 3-9) and, last,
-   the result line (JSON).
+10. enc-dec: whisper-medium at full width and depth (24 encoder + 24
+   decoder layers, bf16): ``Model.prefill`` of 8 requests at 1500 frames
+   and 448 prompt tokens, and the same weights cut to 4 + 4 layers against
+   the CPU in f32; then a dense tenant through the engine (8 prompts of 416
+   tokens, 32 frames each as the engine draws them, 32 new tokens; flash
+   in every encoder, decoder-self and cross layer of a prefill), a decode
+   profile, and one decode step against a no-cache prefill (this holds the
+   cross cache's ``src_len``).
+11. whisper remap: phase 6's remap with two full-depth whisper tenants.
+12. VLM: llava-next-34b at full width and depth (60 layers, GQA 56/8, 34.39
+   B params, bf16) as a dense tenant: 4 requests of 2880 patch rows and
+   512 prompt tokens, 16 new tokens; a decode profile; one decode step
+   after the prefix against a no-cache prefill of prefix, prompt and token.
+13. the kernels line (JSON; launches summed over phases 3-12; each kernel's
+   ``shapes`` lists phase 2's timed shape rows) and, last, the result line
+   (JSON).
 """
 from __future__ import annotations
 
@@ -96,8 +116,9 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models.blocks import Mamba, MoE, ssd_decode_step  # noqa: E402,E501
 from repro_torch.models import attention_ops as plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.common import dtype_of, tree_leaves  # noqa: E402
+from repro_torch.models.common import dtype_of, tree_leaves, tree_map  # noqa: E402,E501
 from repro_torch.serving import ServingEngine, TenantConfig  # noqa: E402
+from repro_torch.serving.engine import stub_frontend_inputs  # noqa: E402
 from repro_torch.serving.traces import tiny_trace  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -629,11 +650,14 @@ def phase_kernels():
     check_ssd(gen, rows)
     for shape in SHAPES:
         check_shape(gen, rows, shape)
+    for shape in FLASH_SHAPES:
+        check_flash_shape(gen, rows, shape)
     timing = time_kernels(gen)
     timing["ssd_scan"] = time_ssd(gen)
-    for shape in SHAPES:
-        time_shape(gen, shape)
-    return {name: (max(errs), timing[name]) for name, errs in rows.items()}
+    shape_rows = [row for shape in SHAPES for row in time_shape(gen, shape)]
+    shape_rows += [time_flash_shape(gen, shape) for shape in FLASH_SHAPES]
+    return ({name: (max(errs), timing[name]) for name, errs in rows.items()},
+            shape_rows)
 
 
 # ------------------------------------------- phase 2: phases 7 and 9's shapes
@@ -709,7 +733,8 @@ def time_shape(gen, shape):
     replay, beside their plain versions, their bounds and, for flash, one
     causal SDPA call. SDPA takes a window only as a boolean mask, which
     costs it its flash backend, so with a window the causal call (a little
-    more work) stays the yardstick and the masked call is printed beside."""
+    more work) stays the yardstick and the masked call is printed beside.
+    Returns the kernels line's shape rows."""
     dt = torch.bfloat16
     hq, hkv, d, window, b, lens, n, starts, s, kp, vp, pt = \
         _shape_inputs(gen, shape, dt)
@@ -748,11 +773,14 @@ def time_shape(gen, shape):
                 lambda: plain.flash_attention(qf, kf, vf, window=window),
                 sdpa, bound(*attention_work(s, s, hq, hkv, d,
                                             window=window))))
+    rows = []
     for name, what, fn, plain_fn, lib, (bms, by) in out:
         calls = 20 if s <= 512 or name != "flash_attention" else 5
         ms = device_ms(fn, calls, 10)
         pms = time_ms(plain_fn, 3, warmup=1)
         lms = device_ms(lib, calls, 10) if lib is not None else None
+        rows.append(_shape_row(name, f"{shape} {what}", ms, pms, bms, by,
+                               lms))
         masked = ""
         if lib is not None and window:
             i = torch.arange(s, device="cuda")
@@ -767,6 +795,84 @@ def time_shape(gen, shape):
             f"{bms / ms:.3f} of it, library "
             + ("none" if lms is None else
                f"{lms:.4f} ms (SDPA causal{masked})"))
+    return rows
+
+
+def _shape_row(name, shape, ms, plain_ms, bound_ms, bound_by, library_ms):
+    return {"name": name, "shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+# ---------------------------------------- phase 2: phases 10-12's flash shapes
+# name -> (B, Sq, Sk, Hq, Hkv, D, causal): whisper-medium's encoder over
+# 1500 frames (bidirectional, Hq = Hkv = 16, D 64) and its decoder's self-
+# and cross-attention over a 448-token prompt (the cross against the 1500
+# encoder rows), at phase 10's prefill check (a batch of 8); the same at
+# the shapes its engine gives them (one request: 32 frames, a 416-token
+# prompt); llava-next-34b's prefill of 2880 patch rows and a 512-token
+# prompt (causal, GQA 56/8) at phase 12's
+FLASH_SHAPES = {
+    "whisper_encoder": (8, 1500, 1500, 16, 16, 64, False),
+    "whisper_decoder": (8, 448, 448, 16, 16, 64, True),
+    "whisper_cross": (8, 448, 1500, 16, 16, 64, False),
+    "whisper_engine_encoder": (1, 32, 32, 16, 16, 64, False),
+    "whisper_engine_decoder": (1, 416, 416, 16, 16, 64, True),
+    "whisper_engine_cross": (1, 416, 32, 16, 16, 64, False),
+    "llava_prefix": (1, 3392, 3392, 56, 8, 128, True),
+}
+
+
+def _flash_inputs(gen, shape, dt):
+    b, sq, sk, hq, hkv, d, causal = FLASH_SHAPES[shape]
+    q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    return q, k, v, causal
+
+
+def check_flash_shape(gen, rows, shape):
+    """Flash at one of ``FLASH_SHAPES``, f32 and bf16, against its plain
+    version: within TOL and, row by row, within ROW_RTOL."""
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, causal = _flash_inputs(gen, shape, dt)
+        out = flash_ops.flash_attention(q, k, v, causal=causal)
+        ref = plain.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e, r = _err(out, ref), row_err(out, ref)
+        rows["flash_attention"].append(e)
+        log(f"[kernels] flash {shape} {str(dt)[6:]} (B, Sq, Sk, Hq, Hkv, D, "
+            f"causal = {FLASH_SHAPES[shape]}): max_err={e:.3g} row_err="
+            f"{r:.3g} (limits {TOL[dt]:g} and {ROW_RTOL[dt]:g} of a row)")
+        if not (e < TOL[dt] and r < ROW_RTOL[dt]):
+            fail(f"flash at {shape} {dt}: max_err {e} (limit {TOL[dt]}), "
+                 f"row_err {r} (limit {ROW_RTOL[dt]})")
+
+
+def time_flash_shape(gen, shape):
+    """Flash at one of ``FLASH_SHAPES`` in bf16 by graph replay, beside its
+    plain version, its bound and one SDPA call with the same mask (none, or
+    causal with GQA). Returns the kernels line's shape row."""
+    q, k, v, causal = _flash_inputs(gen, shape, torch.bfloat16)
+    b, sq, sk, hq, hkv, d, _ = FLASH_SHAPES[shape]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    nbytes, flops = attention_work(sq, sk, hq, hkv, d, causal=causal)
+    bms, by = bound(b * nbytes, b * flops)
+    calls = 5 if b * sq * sk > 4e6 else 20
+    ms = device_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal),
+                   calls, 10)
+    pms = time_ms(lambda: plain.flash_attention(q, k, v, causal=causal), 3,
+                  warmup=1)
+    lms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), calls, 10)
+    log(f"[kernels] time flash_attention at {shape} (B={b}, Sq={sq}, "
+        f"Sk={sk}, Hq {hq}, Hkv {hkv}, D {d}, "
+        f"{'causal' if causal else 'no mask'}, bf16): {ms:.4f} ms (graph "
+        f"replay), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.3f} of it, library {lms:.4f} ms (SDPA, "
+        f"{'causal' if causal else 'no mask'}), kernel/SDPA {ms / lms:.3f}")
+    return _shape_row("flash_attention", f"{shape} B={b} Sq={sq} Sk={sk}",
+                      ms, pms, bms, by, lms)
 
 
 # ------------------------------------------------------- phase 2: ssd_scan
@@ -1163,10 +1269,12 @@ def log_profile(tag: str, batch: int, prof: dict, bound_ms=None) -> None:
 def weight_read_ms(params, cfg, batch: int) -> float:
     """The least time a decode step of ``batch`` tokens could take where
     it reads every weight once (an MoE layer reads every expert when the
-    capacity floor gives each one slots): all parameter bytes, of the
-    embedding table only the batch's rows (unless it is the tied output
-    layer too), over the memory rate."""
-    total = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    capacity floor gives each one slots): all parameter bytes but an
+    encoder's (decode never runs it), of the embedding table only the
+    batch's rows (unless it is the tied output layer too), over the memory
+    rate."""
+    total = sum(x.numel() * x.element_size() for x in tree_leaves(
+        {k: v for k, v in params.items() if k != "encoder"}))
     emb = params["embed"]
     if not cfg.tie_embeddings:
         total -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
@@ -1177,6 +1285,41 @@ def _decode_step_fn(model, params, state, max_context: int):
     tokens = torch.zeros(state["pos"].shape[0], dtype=torch.int32,
                          device=DEVICE)
     return lambda: model.decode_step(params, state, tokens, max_context)
+
+
+def _serve_dense(cfg, params, tag, batch, prompt, new, max_context):
+    """``batch`` requests of ``prompt`` tokens, ``new`` new tokens each,
+    through the engine as one dense tenant with an ample KV budget: every
+    request finished with ``new`` tokens, no preemption or remap, every
+    first-token logit row finite and not all zero. Returns the engine and
+    the launch counts of its run."""
+    eng = ServingEngine(
+        {cfg.name: TenantConfig(cfg, params, max_batch=batch,
+                                max_context=max_context, paged=False)},
+        mode="mirage", base_kv_pages=512, page_size=PAGE, device=DEVICE,
+        keep_prefill_logits=True)
+    trace = tiny_trace([cfg.name], n_per_model=batch, prompt_len=prompt,
+                       max_new=new, vocab=cfg.vocab_size, seed=0)
+    kernels.reset_launch_counts()
+    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
+    counts = kernels.launch_counts()
+    kinds = [k for _, k, _ in eng.events]
+    log(f"[{tag}] dense tenant: finished {len(eng.finished)} requests, "
+        f"{sum(len(r.generated) for r in eng.finished)} tokens in "
+        f"{eng.step_idx} steps; admit+prefill steps {t_pre:.3f} s, decode "
+        f"{dec_tokens} tokens in {t_dec:.3f} s = {dec_tokens / t_dec:.1f} "
+        f"tok/s; launches {counts}")
+    if len(eng.finished) != batch or any(len(r.generated) != new
+                                         for r in eng.finished):
+        fail(f"{tag}: not every request made {new} tokens")
+    if "preempt" in kinds or "remap" in kinds:
+        fail(f"{tag}: the ample budget preempted or remapped: {kinds}")
+    for rid, a in eng.prefill_logits.items():
+        if a.shape != (cfg.vocab_size,) or not torch.isfinite(a).all() \
+                or not a.abs().max() > 0:
+            fail(f"{tag}: prefill logits of {rid} are {tuple(a.shape)}, "
+                 f"max |logit| {a.abs().max().item()}")
+    return eng, counts
 
 
 def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
@@ -1194,43 +1337,19 @@ def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
         f"{n_params / 1e9:.3f} B params initialised in "
         f"{time.perf_counter() - t0:.1f} s")
     max_context = PROMPT + NEW + 2
-    eng = ServingEngine(
-        {cfg.name: TenantConfig(cfg, params, max_batch=8,
-                                max_context=max_context, paged=False)},
-        mode="mirage", base_kv_pages=512, page_size=PAGE, device=DEVICE,
-        keep_prefill_logits=True)
-    trace = tiny_trace([cfg.name], n_per_model=8, prompt_len=PROMPT,
-                       max_new=NEW, vocab=cfg.vocab_size, seed=0)
-    prompts = {r.rid: np.array(r.prompt) for r in trace}
-    kernels.reset_launch_counts()
-    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
-    counts = kernels.launch_counts()
-    kinds = [k for _, k, _ in eng.events]
-    n_prefills = kinds.count("prefill")
-    log(f"[xlstm] finished {len(eng.finished)} requests, "
-        f"{sum(len(r.generated) for r in eng.finished)} tokens in "
-        f"{eng.step_idx} steps; admit+prefill steps {t_pre:.3f} s, decode "
-        f"{dec_tokens} tokens in {t_dec:.3f} s = {dec_tokens / t_dec:.1f} "
-        f"tok/s; launches {counts} "
-        f"({counts['ssd_scan'] / max(n_prefills, 1):.0f} "
-        f"ssd_scan per prompt; {n_mlstm} mLSTM layers)")
-    if len(eng.finished) != 8 or any(len(r.generated) != NEW
-                                     for r in eng.finished):
-        fail(f"xlstm: not every request made {NEW} tokens")
-    if "preempt" in kinds or "remap" in kinds:
-        fail(f"xlstm: the ample budget preempted or remapped: {kinds}")
+    eng, counts = _serve_dense(cfg, params, "xlstm", 8, PROMPT, NEW,
+                               max_context)
+    log(f"[xlstm] {counts['ssd_scan'] / 8:.0f} ssd_scan per prompt; "
+        f"{n_mlstm} mLSTM layers")
     if DEVICE == "cuda" and counts["ssd_scan"] != 8 * n_mlstm:
         fail(f"xlstm: ssd_scan launched {counts['ssd_scan']} times, "
              f"expected {8 * n_mlstm}")
     # the kernel's final state continues the recurrence: prefill of all but
     # the last prompt token, then one decode step of it
     worst, top = 0.0, 0.0
-    for rid, prompt in prompts.items():
+    for r in eng.finished:
+        rid, prompt = r.rid, np.array(r.prompt)
         a = eng.prefill_logits[rid]
-        if a.shape != (cfg.vocab_size,) or not torch.isfinite(a).all() \
-                or not a.abs().max() > 0:
-            fail(f"xlstm: prefill logits of {rid} are {tuple(a.shape)}, "
-                 f"max |logit| {a.abs().max().item()}")
         _, st = model.prefill(params, {"tokens": _tokens(prompt[None, :-1])},
                               max_context)
         b, _ = model.decode_step(params, st, _tokens(prompt[-1:]),
@@ -1494,37 +1613,13 @@ def phase_jamba(cfg=dataclasses.replace(ARCHS["jamba-v0.1-52b"],
     n_mamba = sum(ld.mixer == "mamba" for ld in pattern) * model.repeats
     n_attn = sum(ld.mixer == "attn" for ld in pattern) * model.repeats
     max_context = PROMPT + NEW + 2
-    eng = ServingEngine(
-        {cfg.name: TenantConfig(cfg, params, max_batch=8,
-                                max_context=max_context, paged=False)},
-        mode="mirage", base_kv_pages=512, page_size=PAGE, device=DEVICE,
-        keep_prefill_logits=True)
-    trace = tiny_trace([cfg.name], n_per_model=8, prompt_len=PROMPT,
-                       max_new=NEW, vocab=cfg.vocab_size, seed=0)
-    kernels.reset_launch_counts()
-    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
-    counts = kernels.launch_counts()
-    kinds = [k for _, k, _ in eng.events]
-    log(f"[hybrid] dense tenant: finished {len(eng.finished)} requests, "
-        f"{sum(len(r.generated) for r in eng.finished)} tokens in "
-        f"{eng.step_idx} steps; admit+prefill steps {t_pre:.3f} s, decode "
-        f"{dec_tokens} tokens in {t_dec:.3f} s = {dec_tokens / t_dec:.1f} "
-        f"tok/s; launches {counts} ({n_mamba} Mamba and {n_attn} attention "
-        f"layers a prompt)")
-    if len(eng.finished) != 8 or any(len(r.generated) != NEW
-                                     for r in eng.finished):
-        fail(f"hybrid: not every request made {NEW} tokens")
-    if "preempt" in kinds or "remap" in kinds:
-        fail(f"hybrid: the ample budget preempted or remapped: {kinds}")
+    eng, counts = _serve_dense(cfg, params, "hybrid", 8, PROMPT, NEW,
+                               max_context)
+    log(f"[hybrid] ({n_mamba} Mamba and {n_attn} attention layers a prompt)")
     if DEVICE == "cuda" and (counts["ssd_scan"] != 8 * n_mamba
                              or counts["flash_attention"] != 8 * n_attn):
         fail(f"hybrid: launches {counts}, expected {8 * n_mamba} ssd_scan "
              f"and {8 * n_attn} flash_attention")
-    for rid, a in eng.prefill_logits.items():
-        if a.shape != (cfg.vocab_size,) or not torch.isfinite(a).all() \
-                or not a.abs().max() > 0:
-            fail(f"hybrid: prefill logits of {rid} are {tuple(a.shape)}, "
-                 f"max |logit| {a.abs().max().item()}")
     if DEVICE == "cuda":
         log_profile("hybrid", 8, step_profile(
             _decode_step_fn(model, params, eng.tenants[cfg.name].state,
@@ -1621,17 +1716,206 @@ def phase_danube(cfg=ARCHS["h2o-danube-3-4b"]):
     return launches
 
 
+# ------------------------------------------------------- phases 10 and 12
+def decode_vs_no_cache(model, params, batch, max_context: int):
+    """One request's ``batch`` prefilled, then one decode step of its greedy
+    token, against a prefill of the prompt with that token appended (no
+    decode cache). Returns (max |d| / max |logit|, the token)."""
+    logits, state = model.prefill(params, batch, max_context)
+    tok = logits.argmax(-1).to(torch.int32)
+    a, _ = model.decode_step(params, state, tok, max_context)
+    del state
+    longer = dict(batch, tokens=torch.cat([batch["tokens"],
+                                           tok[:, None].long()], dim=1))
+    b, _ = model.prefill(params, longer, max_context)
+    a, b = a.float().cpu(), b.float().cpu()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail("non-finite logits in the decode/no-cache check")
+    return ((a - b).abs().max() / a.abs().max()).item(), int(tok[0])
+
+
+def _first_request(eng, cfg):
+    """The first finished request's prefill inputs, as the engine made
+    them: its prompt and the stub frontend's frames or patch rows."""
+    r = min(eng.finished, key=lambda x: x.rid)
+    return r.rid, {"tokens": _tokens(np.asarray(r.prompt)[None]),
+                   **stub_frontend_inputs(cfg, r.rid, DEVICE)}
+
+
+# ---------------------------------------------------------------- phase 10
+# whisper's prefill check: requests, the decoder prompt (the reference's
+# WHISPER_DECODER_LEN), the depth of the CPU f32 comparison (encoder and
+# decoder layers) and the requests it takes; the engine's requests keep
+# within the decoder's 448 positions: 416 prompt tokens and 32 new
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CUT, WHISPER_CPU_ROWS = 8, 448, 4, 2
+WHISPER_SERVE_PROMPT = 416
+
+
+def _cut_depth(params, layers: int):
+    """The first ``layers`` encoder and decoder layers' weights (views)."""
+    cut = {"encoder": tree_map(lambda a: a[:layers], params["encoder"]),
+           "blocks": tuple(tree_map(lambda a: a[:layers], b)
+                           for b in params["blocks"])}
+    return dict(params, **cut)
+
+
+def check_whisper_prefill(cfg, model, params):
+    """``Model.prefill`` of ``WHISPER_BATCH`` requests at the config's
+    source length and a ``WHISPER_PROMPT``-token decoder prompt, at full
+    depth; then the same weights cut to ``WHISPER_CUT`` + ``WHISPER_CUT``
+    layers, on the device in the model's dtype against the CPU in f32, on
+    the first ``WHISPER_CPU_ROWS`` requests: first-token logits within
+    LOGIT_RTOL of the largest."""
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    b, s_src = WHISPER_BATCH, cfg.max_source_len
+    frames = torch.randn(b, s_src, cfg.d_model, generator=gen,
+                         device=DEVICE) * 0.02
+    tokens = torch.randint(0, cfg.vocab_size, (b, WHISPER_PROMPT),
+                           generator=gen, device=DEVICE)
+    max_context = WHISPER_PROMPT + 2
+    _sync()
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, {"frames": frames,
+                                           "tokens": tokens}, max_context)
+    _sync()
+    t1 = time.perf_counter()
+    if logits.shape != (b, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail(f"whisper: prefill logits {tuple(logits.shape)} not finite")
+    if state["src_len"].tolist() != [s_src] * b:
+        fail(f"whisper: src_len {state['src_len'].tolist()}")
+    del state
+    rows = slice(0, WHISPER_CPU_ROWS)
+    cut = dataclasses.replace(cfg, num_layers=WHISPER_CUT,
+                              num_encoder_layers=WHISPER_CUT)
+    cp = _cut_depth(params, WHISPER_CUT)
+    a, _ = build_model(cut).prefill(
+        cp, {"frames": frames[rows], "tokens": tokens[rows]}, max_context)
+    t2 = time.perf_counter()
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    ref, _ = build_model(cut32).prefill(
+        tree_map(lambda x: x.cpu().float(), cp),
+        {"frames": frames[rows].cpu(), "tokens": tokens[rows].cpu()},
+        max_context)
+    err = _rel_err(a, ref)
+    log(f"[whisper] Model.prefill of {b} requests x {s_src} frames and "
+        f"{WHISPER_PROMPT} prompt tokens at full depth: {t1 - t0:.3f} s; "
+        f"first-token logits of {WHISPER_CUT} + {WHISPER_CUT} layers, "
+        f"{WHISPER_CPU_ROWS} requests, device {cfg.dtype} against CPU f32 "
+        f"({time.perf_counter() - t2:.1f} s): max|d|/max|logit| = {err:.3g} "
+        f"(tolerance {LOGIT_RTOL}; max|logit| {ref.abs().max().item():.3g})")
+    if not err <= LOGIT_RTOL:
+        fail(f"whisper: cut prefill differs from the CPU by {err}")
+
+
+def phase_whisper(cfg=ARCHS["whisper-medium"]):
+    _reset_peak()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(14),
+                        DEVICE)
+    _sync()
+    leaves = tree_leaves(params)
+    log(f"[whisper] {cfg.name}: {cfg.num_encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads} x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}; "
+        f"{sum(x.numel() for x in leaves) / 1e9:.3f} B params, "
+        f"{sum(x.numel() * x.element_size() for x in leaves) / 1e9:.2f} GB, "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+    check_whisper_prefill(cfg, model, params)
+    max_context = WHISPER_SERVE_PROMPT + NEW + 2
+    eng, counts = _serve_dense(cfg, params, "whisper", 8,
+                               WHISPER_SERVE_PROMPT, NEW, max_context)
+    per_request = cfg.num_encoder_layers + 2 * cfg.num_layers
+    log(f"[whisper] flash launches {counts['flash_attention']} "
+        f"({per_request} a request: encoder, decoder self and cross)")
+    if DEVICE == "cuda" and counts["flash_attention"] != 8 * per_request:
+        fail(f"whisper: flash_attention launched "
+             f"{counts['flash_attention']} times, expected {8 * per_request}")
+    if DEVICE == "cuda":
+        log_profile("whisper", 8, step_profile(_decode_step_fn(
+            model, params, eng.tenants[cfg.name].state, max_context)),
+            weight_read_ms(params, cfg, 8))
+    rid, batch = _first_request(eng, cfg)
+    del eng
+    gap, tok = decode_vs_no_cache(model, params, batch, max_context)
+    log(f"[whisper] {rid}: one decode step (token {tok}; "
+        f"{batch['frames'].shape[1]} frames, cross cache of "
+        f"{cfg.max_source_len} rows) against a "
+        f"no-cache prefill of the prompt and that token: max|d|/max|logit| = "
+        f"{gap:.3g} (tolerance {LOGIT_RTOL})")
+    if not gap <= LOGIT_RTOL:
+        fail(f"whisper: decode and no-cache prefill differ by {gap}")
+    log(f"[whisper] peak memory {_peak() / 2**30:.2f} GiB")
+    del params, model
+    _free()
+    return counts
+
+
+# ---------------------------------------------------------------- phase 11
+def phase_whisper_remap(cfg=ARCHS["whisper-medium"]):
+    return phase_dense_remap(cfg, "whisper-remap", "flash_attention",
+                             (15, 16))
+
+
+# ---------------------------------------------------------------- phase 12
+# llava's requests: 4 prompts of 512 tokens behind the 2880 patch rows, 16
+# new tokens, and the dense cache's length (patches + prompt + new, and a
+# little room: the engine's finish guard does not count the patches)
+LLAVA_BATCH, LLAVA_PROMPT, LLAVA_NEW, LLAVA_CONTEXT = 4, 512, 16, 3456
+# llava's depth: all 60 layers (34.39 B params, 68.8 GB in bf16) fit the card
+LLAVA_LAYERS = 60
+
+
+def phase_llava(cfg=dataclasses.replace(ARCHS["llava-next-34b"],
+                                        num_layers=LLAVA_LAYERS)):
+    _reset_peak()
+    model, params = _init(cfg, 17, "vlm", f"{cfg.num_image_patches} patch "
+                          f"rows, d_ff {cfg.d_ff}, ")
+    full = ARCHS[cfg.name].num_layers
+    if cfg.num_layers != full:
+        log(f"[vlm] depth cut to {cfg.num_layers} of {full} layers")
+    max_context = LLAVA_CONTEXT
+    eng, counts = _serve_dense(cfg, params, "vlm", LLAVA_BATCH, LLAVA_PROMPT,
+                               LLAVA_NEW, max_context)
+    if DEVICE == "cuda" and \
+            counts["flash_attention"] != LLAVA_BATCH * cfg.num_layers:
+        fail(f"vlm: flash_attention launched {counts['flash_attention']} "
+             f"times, expected {LLAVA_BATCH * cfg.num_layers}")
+    if DEVICE == "cuda":
+        log_profile("vlm", LLAVA_BATCH, step_profile(_decode_step_fn(
+            model, params, eng.tenants[cfg.name].state, max_context)),
+            weight_read_ms(params, cfg, LLAVA_BATCH))
+    rid, batch = _first_request(eng, cfg)
+    del eng
+    _free()
+    gap, tok = decode_vs_no_cache(model, params, batch, max_context)
+    log(f"[vlm] {rid}: one decode step at position "
+        f"{cfg.num_image_patches + LLAVA_PROMPT} (token {tok}, after "
+        f"{cfg.num_image_patches} patch rows and {LLAVA_PROMPT} prompt "
+        f"tokens) against a no-cache prefill of the patches, the prompt and "
+        f"that token: max|d|/max|logit| = {gap:.3g} (tolerance {LOGIT_RTOL})")
+    if not gap <= LOGIT_RTOL:
+        fail(f"vlm: decode and no-cache prefill differ by {gap}")
+    log(f"[vlm] peak memory {_peak() / 2**30:.2f} GiB")
+    del params, model
+    _free()
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    checked = phase_kernels()
+    checked, shape_rows = phase_kernels()
     # launches summed over every serving phase's runs (each resets the
     # counts just before its engine runs and reads them just after)
     launches = Counter()
     for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
-                  phase_moonshot, phase_jamba, phase_danube):
+                  phase_moonshot, phase_jamba, phase_danube, phase_whisper,
+                  phase_whisper_remap, phase_llava):
         launches.update(phase())
     log(f"[launches] every serving phase: {dict(launches)}")
     rows = []
@@ -1642,7 +1926,8 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "max_err": err, "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "bound": by,
-            "library_ms": lib})
+            "library_ms": lib,
+            "shapes": [r for r in shape_rows if r["name"] == name]})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 kernels' plain versions (``models.attention_ops``) import without pulling in
 the model stack that calls the kernels."""
 _EXPORTS = {"Model": "registry", "build_model": "registry",
-            "params_from_jax": "registry", "LM": "lm"}
+            "params_from_jax": "registry", "LM": "lm", "EncDec": "encdec"}
 
 
 def __getattr__(name):

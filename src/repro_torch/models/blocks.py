@@ -8,8 +8,9 @@ Conventions as in the JAX package: x is [B, S, D] (sequence) or [B, D]
 d], the experts' ``w_in`` [E, d, f]); K/V are cached post-RoPE at absolute
 positions. A mixer's ``fwd_seq`` returns its cache (attention: the prompt's
 K/V; a recurrent mixer: its final state), and ``fwd_dec`` maps (x, state)
-to (out, new state). The cross-attention of enc-dec waits for a later
-slice (ROADMAP).
+to (out, new state). ``Attention(cross=True)`` is enc-dec's
+cross-attention: queries from the decoder, K/V from the encoder's output,
+no RoPE, no mask; its cache is computed once at prefill and only read after.
 """
 from __future__ import annotations
 
@@ -66,7 +67,11 @@ def _einsum(subs: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class Attention:
-    """GQA self-attention with RoPE and optional sliding window."""
+    """GQA self-attention with RoPE and optional sliding window, or, with
+    ``cross=True``, enc-dec cross-attention over the encoder's output."""
+
+    def __init__(self, cross: bool = False):
+        self.cross = cross
 
     def specs(self, cfg: ModelConfig) -> Dict[str, Spec]:
         d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -86,10 +91,22 @@ class Attention:
 
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
         """Prefill over a full sequence. ctx: dict with 'positions' [B, S]
-        (= arange, the positions the flash kernel assumes) and an optional
-        'bidirectional' flag. On CUDA the attention is the hand-written
-        flash kernel; on the CPU its plain version (the JAX model calls the
-        same plain function at blocks.py:123)."""
+        (= arange, the positions the flash kernel assumes), an optional
+        'bidirectional' flag and, for cross-attention, 'enc_out' [B, Senc,
+        D]. On CUDA the attention is the hand-written flash kernel; on the
+        CPU its plain version (the JAX model calls the same plain function
+        at blocks.py:115 and :123). Returns (y, cache {k, v})."""
+        if self.cross:
+            # Sq = S decoder rows against Sk = Senc encoder rows, unmasked;
+            # the projections come out contiguous, as the kernel's TMA maps
+            # need
+            enc = ctx["enc_out"]
+            q = _einsum("bsd,dhk->bshk", x, p["wq"]).to(x.dtype).contiguous()
+            k, v = (_einsum("bsd,dhk->bshk", enc, p[w]).to(x.dtype)
+                    .contiguous() for w in ("wk", "wv"))
+            out = flash_attention(q, k, v, causal=False)
+            y = _einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+            return y, {"k": k, "v": v}
         positions = ctx["positions"]
         q, k, v = self._qkv(p, x, cfg)
         q = rope(q, positions, cfg.rope_theta)
@@ -122,6 +139,8 @@ class Attention:
         hd]. A ring (sliding-window) cache whose prompt fills it keeps the
         last ``window`` tokens, token t at slot t % window."""
         k, v = cache["k"], cache["v"]
+        if self.cross:                  # the encoder's K/V, as they are
+            return {"k": k, "v": v}
         s = k.shape[-3]
         s_c = self.cache_len(cfg, max_context)
         if cfg.sliding_window and s >= s_c:
@@ -142,8 +161,18 @@ class Attention:
         shared: pos [B], slot [B], kv_pos [B, Sc], kv_valid [B, Sc]. The new
         token's K/V row is written IN PLACE at ``slot`` (the JAX block
         returns an updated copy), so the state it returns is empty: nothing
-        is left for the caller to write back."""
+        is left for the caller to write back.
+
+        Cross-attention: Q only, against the cross cache ``state`` {k, v}
+        [B, Ssrc, Hkv, hd] under ``shared["cross_pos"]``/``["cross_valid"]``
+        [B, Ssrc], unmasked otherwise; it writes nothing."""
         pos = shared["pos"]
+        if self.cross:
+            q = _einsum("bd,dhk->bhk", x, p["wq"]).to(x.dtype)
+            out = decode_attention(q, state["k"], state["v"], pos,
+                                   shared["cross_pos"], shared["cross_valid"],
+                                   causal=False)
+            return _einsum("bhk,hkd->bd", out, p["wo"]).to(x.dtype), {}
         q, k_new, v_new = self._qkv(p, x, cfg)
         q = rope(q, pos, cfg.rope_theta)
         k_new = rope(k_new, pos, cfg.rope_theta)

@@ -17,8 +17,9 @@ The paged state's pools and the dense decode state are updated IN PLACE
 gigabytes, and the engine never needs the old one. Functions still return
 the state dict, as in the JAX package.
 
-Enc-dec (whisper) and VLM (llava: a prefix of patch embeddings) configs
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+A VLM (llava) is this LM with a prefix: precomputed patch embeddings
+(``prefix_embeds`` [B, P, D], the stub of its vision frontend) go ahead of
+the scaled token embeddings. Enc-dec (whisper) is ``models.encdec``.
 """
 from __future__ import annotations
 
@@ -37,10 +38,6 @@ from repro_torch.models.blocks import (
 from repro_torch.models.common import (
     Spec, dtype_of, stack_specs, tree_init, tree_map,
 )
-
-_ROADMAP_ENC_DEC_VLM = ("enc-dec and VLM configs are ported in a later "
-                        "slice: ROADMAP queue 1, item 2, 'Enc-dec and VLM'")
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
@@ -118,8 +115,9 @@ class LM:
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        if cfg.is_encoder_decoder or cfg.num_image_patches:
-            raise NotImplementedError(f"{cfg.name}: " + _ROADMAP_ENC_DEC_VLM)
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name}: an encoder-decoder config is "
+                             "models.encdec.EncDec, not LM")
         self.pattern, self.repeats = block_pattern(cfg)
         # only attention stacks can decode against the paged KV pool
         self.attention_only = all(ld.mixer == "attn" for ld in self.pattern)
@@ -145,10 +143,14 @@ class LM:
         return tree_init(self.specs(), generator, device)
 
     # --------------------------------------------------------------- embed/out
-    def embed(self, params, tokens):
-        """tokens [B, S] -> x [B, S, D]."""
+    def embed(self, params, tokens, prefix_embeds=None):
+        """tokens [B, St] (+ an optional prefix [B, P, D], cast to the
+        model's dtype) -> x [B, P + St, D]."""
         x = params["embed"][tokens.long()].to(dtype_of(self.cfg))
-        return x * (self.cfg.d_model ** 0.5)
+        x = x * (self.cfg.d_model ** 0.5)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        return x
 
     def _out_w(self, params):
         if self.cfg.tie_embeddings:
@@ -343,9 +345,10 @@ class LM:
         return logits, dict(state, ctx=pos + 1)
 
     def prefill_chunk_paged(self, params, state, slot, tokens, start,
-                            fetch=None):
+                            fetch=None, prefix_embeds=None):
         """One chunked-prefill step for batch row ``slot``: run the stack
-        over ``tokens`` [S] at absolute positions ``start + arange(S)``,
+        over ``tokens`` [S] (after ``prefix_embeds`` [1, P, D] where given:
+        S counts both) at absolute positions ``start + arange(S)``,
         scattering each layer's K/V into the slot's pages before attending
         through the paged prefill kernel. ctx[slot] is dead state while the
         slot is mid-prefill (see the JAX docstring), so positions and masks
@@ -354,7 +357,7 @@ class LM:
         cfg = self.cfg
         self._require_attention("prefill_chunk_paged")
         fetch = fetch or _index_fetch(params)
-        x = self.embed(params, tokens[None, :])               # [1, S, D]
+        x = self.embed(params, tokens[None, :], prefix_embeds)   # [1, S, D]
         s = x.shape[1]
         dev = x.device
         pos = start + torch.arange(s, dtype=torch.int32, device=dev)
@@ -414,15 +417,22 @@ class LM:
                 "ctx": lengths.to(torch.int32)}
 
     # --------------------------------------------------------------- prefill
-    def prefill(self, params, tokens, max_context: int):
-        """tokens [B, S] (every row S tokens long) -> (last_logits [B, V],
-        dense decode state)."""
-        b, s = tokens.shape
-        x = self.embed(params, tokens)
+    def prefill(self, params, tokens, max_context: int, prefix_embeds=None,
+                lengths=None):
+        """tokens [B, St] (after ``prefix_embeds`` [B, P, D] where given) ->
+        (last_logits [B, V], dense decode state). ``lengths`` [B]: each
+        row's real length of the S = P + St rows (default S); the logits
+        are those of row ``lengths - 1`` and decode continues there."""
+        b = tokens.shape[0]
+        x = self.embed(params, tokens, prefix_embeds)
+        s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         x, _aux, caches = self.fwd_seq(params, x, {"positions": positions},
                                        collect_cache=True)
-        logits = self.logits_last(params, x[:, -1])
-        lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        if lengths is None:
+            lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        last = torch.clamp(lengths.long() - 1, 0, s - 1)
+        logits = self.logits_last(params, x[torch.arange(b, device=x.device),
+                                            last])
         return logits, self.state_from_prefill(caches, lengths, max_context)

@@ -1,5 +1,5 @@
-"""Model facade over the port's LM, and the weight bridge from the JAX
-package's parameter tree."""
+"""Model facade over the port's LM and EncDec, and the weight bridge from
+the JAX package's parameter tree."""
 from __future__ import annotations
 
 from typing import Any
@@ -9,16 +9,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import tree_map
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
 
 class Model:
-    """Facade over the LM (the JAX facade also dispatches to EncDec, which
-    waits for a later slice and raises in ``LM``)."""
+    """Dispatches to LM or EncDec, as the JAX facade does."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self.impl = LM(cfg)
+        self.impl = EncDec(cfg) if cfg.is_encoder_decoder else LM(cfg)
 
     def specs(self):
         return self.impl.specs()
@@ -32,7 +32,15 @@ class Model:
 
     # ---------------------------------------------------------------- serving
     def prefill(self, params, batch, max_context: int):
-        return self.impl.prefill(params, batch["tokens"], max_context)
+        """``batch``: "tokens" [B, S]; an enc-dec config's "frames" [B,
+        S_enc, D]; a VLM's optional "patch_embeds" [B, P, D] and
+        "lengths" [B]."""
+        if self.cfg.is_encoder_decoder:
+            return self.impl.prefill(params, batch["frames"], batch["tokens"],
+                                     max_context)
+        return self.impl.prefill(params, batch["tokens"], max_context,
+                                 prefix_embeds=batch.get("patch_embeds"),
+                                 lengths=batch.get("lengths"))
 
     def decode_step(self, params, state, tokens, max_context: int,
                     fetch=None):

@@ -24,12 +24,15 @@ assert — remapping must never change results.
 The port runs eagerly (no jit cache). It serves paged attention-stack
 tenants (dense or MoE FFN) and dense (``paged=False``) tenants of any
 stack: attention (a K/V cache per slot, a ring for a sliding window),
-hybrid Mamba + attention (jamba) and recurrent (xLSTM); a remapped dense
-tenant streams its cycling repeats (one repeat = one pattern period of
-layers) from pinned host memory exactly as a paged one does. Enc-dec and
-VLM configs and the fleet hooks (``export_prefix``/``import_prefix``/
+hybrid Mamba + attention (jamba), recurrent (xLSTM), VLM (llava: a prefix
+of patch embeddings) and enc-dec (whisper: encoder, cross-attention); a
+remapped dense tenant streams its cycling repeats (one repeat = one
+pattern period of layers, a decoder layer for enc-dec) from pinned host
+memory exactly as a paged one does. A paged VLM or enc-dec tenant is
+refused (``ValueError``): the reference has no correct answer for either
+(ROADMAP queue 3). The fleet hooks (``export_prefix``/``import_prefix``/
 ``prefix_snapshot``/``withdraw_pending``/``drain_for_removal``) raise
-``NotImplementedError``: they wait for later slices (ROADMAP).
+``NotImplementedError``: they wait for a later slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -120,6 +123,24 @@ class TenantConfig:
     paged: bool = False
 
 
+def stub_frontend_inputs(cfg: ModelConfig, rid: str, device) -> Dict:
+    """The stub frontends' prefill inputs for request ``rid``, drawn as the
+    reference engine draws them (engine.py:763-771): an enc-dec config's
+    "frames" [1, min(max_source_len, 32), D], a VLM's "patch_embeds" [1,
+    num_image_patches, D], each 0.02 * a standard normal from a generator
+    seeded by ``hash(rid)`` (salted per process for a str), made in f32 on
+    the host and moved to ``device``. Empty for a text-only config."""
+    shapes = {}
+    if cfg.is_encoder_decoder:
+        shapes["frames"] = (1, min(cfg.max_source_len, 32), cfg.d_model)
+    if cfg.num_image_patches:
+        shapes["patch_embeds"] = (1, cfg.num_image_patches, cfg.d_model)
+    seed = abs(hash(rid)) % (2**31)
+    return {k: torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        shape) * 0.02).astype(np.float32)).to(device)
+        for k, shape in shapes.items()}
+
+
 class Tenant:
     """Runtime state for one hosted model."""
 
@@ -127,9 +148,20 @@ class Tenant:
                  device):
         self.name = name
         self.cfg = tc.cfg
-        self.model = build_model(tc.cfg)   # raises on enc-dec and VLM
+        self.model = build_model(tc.cfg)
+        if tc.paged and tc.cfg.is_encoder_decoder:
+            # the reference's paged prefill calls an LM method EncDec lacks
+            # (ROADMAP queue 3)
+            raise ValueError(f"paged mode does not serve an encoder-decoder: "
+                             f"{name}; use paged=False")
         if tc.paged and not self.model.impl.attention_only:
             raise ValueError(f"paged mode needs an attention stack: {name}")
+        if tc.paged and tc.cfg.num_image_patches:
+            # the reference admits prompt + 1 tokens of pages but writes
+            # patches + prompt K/V rows through them (ROADMAP queue 3)
+            raise ValueError(f"paged mode does not serve a VLM prefix: {name} "
+                             f"({tc.cfg.num_image_patches} patch rows); use "
+                             "paged=False")
         self.params = tc.params
         self.device = torch.device(device)
         for leaf in tree_leaves(tc.params):
@@ -678,11 +710,8 @@ class ServingEngine:
             ) is not None
             t.queue.popleft()
             # chunked prefill needs the paged pool to hold partial-prompt
-            # KV between steps; multimodal prefixes (patch embeds / audio
-            # frames) shift positions and keep the monolithic path.
-            if t.paged and self.prefill_chunk_tokens > 0 \
-                    and not t.cfg.num_image_patches \
-                    and not t.cfg.is_encoder_decoder:
+            # KV between steps (VLM and enc-dec tenants are never paged)
+            if t.paged and self.prefill_chunk_tokens > 0:
                 self._begin_chunked_prefill(t, r, slot)
             else:
                 self._prefill(t, r, slot)
@@ -712,11 +741,10 @@ class ServingEngine:
         return freed
 
     def _prefill(self, t: Tenant, r: Request, slot: int) -> None:
-        # enc-dec frames and VLM patch embeds: the LM raises on such
-        # configs when the tenant is built (a later slice ports them)
         prompt = torch.from_numpy(
             np.asarray(r.prompt[None, :], np.int64)).to(t.device)
-        batch = {"tokens": prompt}
+        batch = {"tokens": prompt, **stub_frontend_inputs(t.cfg, r.rid,
+                                                           t.device)}
         if t.paged:
             logits = self._prefill_paged(t, r, slot, batch)
         else:

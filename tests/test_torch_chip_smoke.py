@@ -1,7 +1,8 @@
-"""chip_smoke.py's serve and remap phases (llama3-8b and xlstm-1.3b),
-rehearsed on the CPU at a tiny size: the same engine calls, checks and
-printouts as on the card, with the kernels' plain versions (the script
-itself refuses to run without a CUDA device)."""
+"""chip_smoke.py's serve and remap phases (llama3-8b, xlstm-1.3b, moonshot,
+jamba, danube, whisper, llava), rehearsed on the CPU at a tiny size: the
+same engine calls, checks and printouts as on the card, with the kernels'
+plain versions (the script itself refuses to run without a CUDA device);
+and its pure helpers."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -56,7 +57,7 @@ def test_xlstm_serve_and_remap_phases_run(on_cpu, capsys):
     assert counts["ssd_scan"] == 0          # the plain version on the CPU
     chip_smoke.phase_xlstm_remap(cfg)
     out = capsys.readouterr().out
-    assert "[xlstm] finished 8 requests" in out
+    assert "[xlstm] dense tenant: finished 8 requests" in out
     assert "prefill of P-1 and one decode step" in out
     assert "1 remap and" in out
     assert "generated tokens identical to the ample-budget run" in out
@@ -110,6 +111,113 @@ def test_ring_phase_runs(small_new_phases, capsys):
     assert "one decode step at position 80 (past the 64-token window)" in out
     assert "[ring-remap] 1 remap and" in out
     assert "generated tokens identical to the ample-budget run" in out
+
+
+@pytest.fixture
+def small_encdec_vlm(on_cpu, monkeypatch):
+    for name, value in (("WHISPER_BATCH", 2), ("WHISPER_PROMPT", 20),
+                        ("WHISPER_CUT", 1), ("WHISPER_CPU_ROWS", 1),
+                        ("WHISPER_SERVE_PROMPT", 20), ("LLAVA_BATCH", 2),
+                        ("LLAVA_PROMPT", 20), ("LLAVA_NEW", 4),
+                        ("LLAVA_CONTEXT", 64)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_whisper_phases_run(small_encdec_vlm, capsys):
+    """whisper (2 encoder + 2 decoder layers scaled, 64 source rows) as a
+    dense tenant, its prefill checks, then the two-tenant remap; bf16."""
+    cfg = _bf16("whisper-medium", 2)
+    counts = chip_smoke.phase_whisper(cfg)
+    assert counts["flash_attention"] == 0           # the plain version
+    chip_smoke.phase_whisper_remap(cfg)
+    out = capsys.readouterr().out
+    assert "[whisper] Model.prefill of 2 requests x 64 frames and 20 " \
+        "prompt tokens" in out
+    assert "first-token logits of 1 + 1 layers, 1 requests" in out
+    assert "[whisper] dense tenant: finished 8 requests, 40 tokens" in out
+    assert "(6 a request: encoder, decoder self and cross)" in out
+    assert "32 frames, cross cache of 64 rows" in out
+    assert "[whisper-remap] 1 remap and" in out
+    assert "generated tokens identical to the ample-budget run" in out
+
+
+def test_vlm_phase_runs(small_encdec_vlm, capsys):
+    """llava (2 layers scaled, 16 patch rows) as a dense tenant; bf16."""
+    chip_smoke.phase_llava(_bf16("llava-next-34b", 2))
+    out = capsys.readouterr().out
+    assert "[vlm] dense tenant: finished 2 requests, 8 tokens" in out
+    assert "one decode step at position 36 (token" in out
+    assert "after 16 patch rows and 20 prompt tokens" in out
+
+
+def test_decode_check_sees_a_lost_src_len():
+    """Phase 10's decode/no-cache check on whisper (f32, scaled): passes
+    with the state's src_len, fails by far with it dropped, as the
+    reference engine's slot insertion drops it."""
+    from repro_torch.models import build_model
+
+    cfg = scaled_config(ARCHS["whisper-medium"], num_layers=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+        (1, 32, cfg.d_model)).astype(np.float32) * 0.02),
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 12)))}
+    gap, _ = chip_smoke.decode_vs_no_cache(model, params, batch, 32)
+    assert gap < 1e-5
+
+    class Lost:                 # prefill's state without its src_len
+        cfg = model.cfg
+
+        def prefill(self, *a):
+            logits, state = model.prefill(*a)
+            del state["src_len"]
+            return logits, state
+
+        def decode_step(self, *a):
+            return model.decode_step(*a)
+    gap, _ = chip_smoke.decode_vs_no_cache(Lost(), params, batch, 32)
+    assert gap > chip_smoke.LOGIT_RTOL
+
+
+@pytest.mark.parametrize("shape", sorted(chip_smoke.FLASH_SHAPES))
+def test_flash_shapes_are_the_served_models(shape):
+    """Phase 2's whisper and llava flash shapes: the configs' heads, the
+    phases' batches and lengths."""
+    b, sq, sk, hq, hkv, d, causal = chip_smoke.FLASH_SHAPES[shape]
+    cfg = ARCHS["llava-next-34b" if shape == "llava_prefix"
+                else "whisper-medium"]
+    assert (hq, hkv, d) == (cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim)
+    if shape == "llava_prefix":
+        assert (b, sq, causal) == (1, cfg.num_image_patches
+                                   + chip_smoke.LLAVA_PROMPT, True)
+        assert sq + chip_smoke.LLAVA_NEW < chip_smoke.LLAVA_CONTEXT
+    elif shape.startswith("whisper_engine"):       # one engine request
+        src, dec = min(cfg.max_source_len, 32), chip_smoke.WHISPER_SERVE_PROMPT
+        assert b == 1
+        assert (sq, sk, causal) == {
+            "whisper_engine_encoder": (src, src, False),
+            "whisper_engine_decoder": (dec, dec, True),
+            "whisper_engine_cross": (dec, src, False)}[shape]
+    else:                                          # the prefill check
+        src, dec = cfg.max_source_len, chip_smoke.WHISPER_PROMPT
+        assert b == chip_smoke.WHISPER_BATCH
+        assert (sq, sk, causal) == {"whisper_encoder": (src, src, False),
+                                    "whisper_decoder": (dec, dec, True),
+                                    "whisper_cross": (dec, src, False)}[shape]
+
+
+def test_weight_read_bound_leaves_out_the_encoder():
+    """A decode step never runs whisper's encoder: its weights do not count
+    toward the bound."""
+    from repro_torch.models import build_model
+
+    cfg = scaled_config(ARCHS["whisper-medium"], num_layers=2)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    without = {k: v for k, v in params.items() if k != "encoder"}
+    assert chip_smoke.weight_read_ms(params, cfg, 2) == \
+        chip_smoke.weight_read_ms(without, cfg, 2)
 
 
 @pytest.mark.parametrize("shape", sorted(chip_smoke.SHAPES))

@@ -19,7 +19,7 @@ from repro.serving import TenantConfig as JaxTenant  # noqa: E402
 from repro.serving import traces as jax_traces  # noqa: E402
 
 import repro_torch.configs as tcfgs  # noqa: E402
-from repro_torch.models import params_from_jax  # noqa: E402
+from repro_torch.models import build_model, params_from_jax  # noqa: E402
 from repro_torch.serving import ServingEngine, TenantConfig  # noqa: E402
 from repro_torch.serving import traces as torch_traces  # noqa: E402
 
@@ -117,11 +117,12 @@ def test_engine_matches_jax_engine(weights, case):
 
 
 def test_unported_paths_raise(weights):
-    """paged=False serves every decoder-only stack now (attention, Mamba,
-    MoE: tests/test_torch_engine_hybrid.py); enc-dec (whisper) and VLM
-    (llava) configs still raise, naming the ROADMAP item, as do the fleet
-    hooks; paged=True on a stack with Mamba layers is refused (the JAX
-    engine asserts the same)."""
+    """The fleet hooks still raise, naming the ROADMAP; every config builds
+    as a dense (paged=False) tenant, enc-dec (whisper) and VLM (llava) too
+    (tests/test_torch_engine_encdec.py serves them), while paged=True is
+    refused with a ValueError for whisper and llava (the reference has no
+    correct paged answer for either: ROADMAP queue 3) and for a stack with
+    Mamba layers (the JAX engine asserts the same)."""
     cfg, jp, tcfg, tp = weights["A"]
     eng = ServingEngine({"A": TenantConfig(tcfg, tp, paged=True)},
                         device="cpu")
@@ -131,13 +132,17 @@ def test_unported_paths_raise(weights):
                        ("drain_for_removal", ())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(eng, hook)(*args)
-    for arch in ("whisper-medium", "llava-next-34b"):
-        unported = tcfgs.scaled_config(tcfgs.ARCHS[arch], num_layers=2)
-        for paged in (False, True):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP queue 1, item 2"):
-                ServingEngine({"W": TenantConfig(unported, tp, paged=paged)},
+    for arch, what in (("whisper-medium", "an encoder-decoder"),
+                       ("llava-next-34b", "a VLM prefix")):
+        mcfg = tcfgs.scaled_config(tcfgs.ARCHS[arch], num_layers=2)
+        params = build_model(mcfg).init(torch.Generator().manual_seed(0),
+                                        "cpu")
+        with pytest.raises(ValueError, match=f"does not serve {what}"):
+            ServingEngine({"W": TenantConfig(mcfg, params, paged=True)},
+                          device="cpu")
+        dense = ServingEngine({"W": TenantConfig(mcfg, params, paged=False)},
                               device="cpu")
+        assert dense.tenants["W"].state["pos"].shape == (8,)
     jamba = tcfgs.scaled_config(tcfgs.ARCHS["jamba-v0.1-52b"], num_layers=4)
     with pytest.raises(ValueError, match="needs an attention stack"):
         ServingEngine({"J": TenantConfig(jamba, tp, paged=True)},

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on a
 CUDA device (skipped elsewhere), at the kernel test cases' shapes plus head
 dims that exercise the tensor-core path's padding, the served models'
-shapes (danube's head dim 120 with its window, moonshot's MHA; there
-also row by row, a check that a kernel leaving out one key tile fails),
+shapes (danube's head dim 120 with its window, moonshot's MHA, whisper's
+encoder and cross-attention, llava's prefix; there also row by row, a
+check that a kernel leaving out one key tile fails),
 and the
 SSD scan at chip_smoke.py's shapes (xLSTM, a ragged T, Mamba widths) plus
 the cases of tests/test_ssd_kernel.py; and the MoE layer's determinism. Imports neither JAX nor ``repro``, so it runs on
@@ -328,6 +329,33 @@ def test_served_shape_check_sees_a_one_tile_fault(cuda, case):
         fault = call(flash_ops if name == "flash" else paged_ops,
                      (window or keys) - 64)
         assert row_err(fault, call(plain, window)) > ROW_RTOL[dt], name
+
+
+# B, Sq, Sk, Hq, Hkv, D, causal: chip_smoke.FLASH_SHAPES with fewer heads
+# (whisper's bidirectional encoder over 1500 frames, its cross-attention of
+# 448 decoder rows against 1500, llava's causal GQA prefill of 2880 patch
+# rows and 512 tokens at G = 7)
+FLASH_SERVED = [(2, 1500, 1500, 4, 4, 64, False),
+                (2, 448, 1500, 4, 4, 64, False),
+                (1, 3392, 3392, 14, 2, 128, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_SERVED, ids=[
+    "whisper_encoder", "whisper_cross", "llava_prefix"])
+def test_flash_at_the_enc_dec_and_vlm_shapes(cuda, dt, case):
+    """Within TOL and, row by row, within ROW_RTOL of the row's largest
+    value."""
+    b, sq, sk, hq, hkv, d, causal = case
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (b, sq, hq, d), dt, cuda)
+    k = _randn(rng, (b, sk, hkv, d), dt, cuda)
+    v = _randn(rng, (b, sk, hkv, d), dt, cuda)
+    out = flash_ops.flash_attention(q, k, v, causal=causal)
+    ref = plain.flash_attention(q, k, v, causal=causal)
+    assert _err(out, ref) < TOL[dt]
+    assert row_err(out, ref) < ROW_RTOL[dt]
 
 
 @pytest.mark.gpu

@@ -5,9 +5,11 @@
 
 Serves ``--arch`` at full width (bf16, seeded random weights; ``--layers``
 cuts the depth, 0 keeps the config's) through the ``ServingEngine`` with
-monolithic prefill: as a paged tenant when the stack is attention only
-(llama3-8b, moonshot-v1-16b-a3b), else as a dense (``paged=False``) one
-(jamba-v0.1-52b, which needs ``--layers 16`` to fit one card). Then it
+monolithic prefill: as a paged tenant when the stack is a decoder-only
+attention stack with no VLM prefix (llama3-8b, moonshot-v1-16b-a3b), else
+as a dense (``paged=False``) one (jamba-v0.1-52b, which needs ``--layers
+16`` to fit one card; whisper-medium; llava-next-34b, whose cache also
+holds its 2880 patch rows; give it ``--batch 4``). Then it
 profiles decode-only engine steps with ``chip_smoke.step_profile``, the
 profiler of chip_smoke.py's serving phases, and prints what that prints:
 the wall time per step (``--steps`` unprofiled steps), then for as many
@@ -55,11 +57,12 @@ def main() -> None:
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg)
-    paged = model.impl.attention_only
+    paged = model.impl.attention_only and not cfg.num_image_patches
     params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    max_context = cfg.num_image_patches + args.prompt + 64
     eng = ServingEngine(
         {cfg.name: TenantConfig(cfg, params, max_batch=args.batch,
-                                max_context=args.prompt + 64, paged=paged)},
+                                max_context=max_context, paged=paged)},
         mode="mirage", base_kv_pages=64 * args.batch, page_size=16,
         device="cuda")
     trace = tiny_trace([cfg.name], n_per_model=args.batch,
