@@ -81,13 +81,33 @@ no CUDA device or any phase fails. Phases:
    B params, bf16) as a dense tenant: 4 requests of 2880 patch rows and
    512 prompt tokens, 16 new tokens; a decode profile; one decode step
    after the prefix against a no-cache prefill of prefix, prompt and token.
-13. the kernels line (JSON; launches summed over phases 3-12; each kernel's
+13. fleet: (a) llama3-8b at full width and depth (32 layers, bf16, phase
+   3's weights) lowered from one ``RuntimeConfig`` to a two-replica
+   ``ReplicaGroup`` with a ``FleetPrefixCache`` and a least-loaded router,
+   paged tenant, prefix sharing, 128-token chunked prefill; 16 requests of
+   4 system prompts of 384 tokens, each shared by 4 requests that add 128
+   tokens of their own, 32 new tokens each. A request routed away from
+   its group's prefix imports the span's K/V pages from the other replica
+   (GH200's link prices import below recompute) and prefills only its own
+   128 tokens (paged prefill kernel over the imported pages; paged decode
+   after). After each import the importer's pages must equal the donor's
+   export exactly, and each such request's first-token logits must lie
+   within ``LOGIT_RTOL`` of a lone engine's monolithic prefill (flash).
+   (b) phase 4's two 2-layer tenants on a two-replica group with
+   coordinated remaps and no Dynamic Reversion: the first replica to remap
+   under the tight pool is removed (respill, forced reversion through its
+   TransferEngine, teardown), must end with nothing remapped or streaming,
+   and its pools must be freed once it is dropped; then a replica joins
+   pre-warmed from the survivor's prefix cache and must probe every
+   snapshot span as the donor does.
+14. the kernels line (JSON; launches summed over phases 3-13; each kernel's
    ``shapes`` lists phase 2's timed shape rows) and, last, the result line
    (JSON).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -95,6 +115,7 @@ import subprocess
 import sys
 import time
 import warnings
+import weakref
 from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -106,7 +127,11 @@ import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.cluster import (  # noqa: E402
+    FleetPrefixCache, ReplicaGroup, Router,
+)
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs.base import RuntimeConfig as EngineKnobs  # noqa: E402,E501
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -117,8 +142,12 @@ from repro_torch.models.blocks import Mamba, MoE, ssd_decode_step  # noqa: E402,
 from repro_torch.models import attention_ops as plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import dtype_of, tree_leaves, tree_map  # noqa: E402,E501
-from repro_torch.serving import ServingEngine, TenantConfig  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    RuntimeConfig, ServingEngine, TenantConfig, TenantSpec,
+)
 from repro_torch.serving.engine import stub_frontend_inputs  # noqa: E402
+from repro_torch.serving.hw import GH200  # noqa: E402
+from repro_torch.serving.request import Request  # noqa: E402
 from repro_torch.serving.traces import tiny_trace  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -1091,7 +1120,9 @@ def check_paged_launches(tag, c_mono, c_chunk):
 
 
 def _free() -> None:
-    """Hand the freed phase's device memory back before the next phase."""
+    """Hand the freed phase's device memory back before the next phase
+    (phase 13's wrapped replica methods hold their replicas in cycles)."""
+    gc.collect()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
 
@@ -1904,6 +1935,319 @@ def phase_llava(cfg=dataclasses.replace(ARCHS["llava-next-34b"],
     return counts
 
 
+# --------------------------------------------------------------- phase 13
+# (a): 4 system prompts of 384 tokens, each shared by 4 requests that add
+# 128 tokens of their own (512-token prompts, as in phase 3), prefilled in
+# 128-token chunks on two replicas of one llama3-8b tenant
+FLEET_SYSTEM, FLEET_OWN, FLEET_GROUPS, FLEET_SHARE = 384, 128, 4, 4
+FLEET_CHUNK, FLEET_PAGES = 128, 512
+# the spec whose costs decide import against recompute: a 384-token span
+# of llama3-8b (50,331,648 bytes of K/V) crosses GH200's 450 GB/s link in
+# 0.11 ms, and recomputing it costs 10.6 ms, so the group imports it
+FLEET_HW = GH200
+# (b): phase 4's two 2-layer tenants and tight pool; 8 requests at once
+# (remaps under pressure), 4 more after the scale-in and scale-out
+SCALE_PROMPT, SCALE_NEW, SCALE_PAGES, SCALE_LATE = 96, 16, 16, 100.0
+SCALE_PREWARM_BLOCKS = 12
+
+
+def fleet_trace(model: str, vocab: int, gap: float = 2.0):
+    """The 4 groups' first requests, then the rest round-robin over the
+    groups, one arrival every ``gap`` steps: a group's first request has
+    prefilled its 4 chunks and published its prompt before the group's
+    second request arrives 4 * ``gap`` steps later."""
+    rng = np.random.default_rng(13)
+    systems = [rng.integers(0, vocab, FLEET_SYSTEM)
+               for _ in range(FLEET_GROUPS)]
+    reqs = []
+    for k in range(FLEET_SHARE):
+        for g in range(FLEET_GROUPS):
+            own = rng.integers(0, vocab, FLEET_OWN)
+            reqs.append(Request(
+                f"g{g}-{k}", model,
+                np.concatenate([systems[g], own]).astype(np.int32),
+                max_new_tokens=NEW, arrival=1.0 + gap * len(reqs)))
+    return reqs
+
+
+def _kv_bytes(kv) -> int:
+    return sum(x.numel() * x.element_size() for x in kv)
+
+
+def instrument_fleet(rt, log_: dict) -> None:
+    """Wrap one replica's ``export_prefix``/``import_prefix``: time them
+    (each ends synchronised), count the bytes that cross, record each
+    import's tokens, and check after every import that the importer's
+    pages for the span are the donor's exactly (``torch.equal``)."""
+    export, import_ = rt.export_prefix, rt.import_prefix
+
+    def timed_export(model, tokens, n_tokens):
+        _sync()
+        t0 = time.perf_counter()
+        kv = export(model, tokens, n_tokens)      # returns after the copy
+        log_["ms"] += (time.perf_counter() - t0) * 1e3
+        if kv is not None:
+            log_["exported"] += _kv_bytes(kv)
+        return kv
+
+    def checked_import(model, tokens, n_tokens, kv=None):
+        _sync()
+        t0 = time.perf_counter()
+        got = import_(model, tokens, n_tokens, kv=kv)
+        _sync()
+        log_["ms"] += (time.perf_counter() - t0) * 1e3
+        if got:
+            blocks = got // PAGE
+            log_["imported"] += _kv_bytes(kv) * blocks // kv[0].shape[1]
+            log_["imports"].append(np.asarray(tokens).tobytes())
+            mine = export(model, tokens, n_tokens)
+            if mine is None or not all(
+                    torch.equal(a, b) for a, b in zip(mine, kv)):
+                fail(f"fleet: the importer's pages for a {n_tokens}-token "
+                     f"span differ from the donor's export")
+        return got
+
+    rt.export_prefix, rt.import_prefix = timed_export, checked_import
+
+
+def _fleet_log() -> dict:
+    return {"ms": 0.0, "exported": 0, "imported": 0, "imports": []}
+
+
+def _check_replica(rt) -> None:
+    rt.allocator.check_invariants()
+    for idx in rt.prefix.values():
+        idx.check_invariants()
+
+
+def phase_fleet_import(cfg=ARCHS["llama3-8b"]):
+    """13(a): two replicas lowered from one RuntimeConfig, a fleet prefix
+    cache and a least-loaded router; a request routed away from its
+    group's prefix imports the 384-token span's pages from the other
+    replica and prefills only its own 128 tokens (paged prefill kernel)."""
+    _reset_peak()
+    model, params = _init(cfg, 0, "fleet", "")
+    name = cfg.name
+    max_context = FLEET_SYSTEM + FLEET_OWN + NEW + 2 * PAGE
+    conf = RuntimeConfig(
+        tenants={name: TenantSpec(cfg, params=params, max_batch=8,
+                                  max_context=max_context, paged=True)},
+        mode="mirage", prefill_chunk_tokens=FLEET_CHUNK, prefix_sharing=True)
+    fc = FleetPrefixCache(page_size=PAGE)
+    group = ReplicaGroup.from_config(
+        conf, 2, backend="engine", router=Router("least_loaded"),
+        fleet_cache=fc, base_kv_pages=FLEET_PAGES, page_size=PAGE,
+        keep_prefill_logits=True, hw=FLEET_HW, device=DEVICE)
+    moved = _fleet_log()
+    for rt in group.replicas:
+        instrument_fleet(rt, moved)
+    trace = fleet_trace(name, cfg.vocab_size)
+    prompts = {np.asarray(r.prompt).tobytes(): r for r in trace}
+    originals = {r.rid: r.prompt.copy() for r in trace}
+    kernels.reset_launch_counts()
+    group.submit(trace)
+    _sync()
+    t0 = time.perf_counter()
+    t_first = first_tokens = None
+    while group.busy() and group.ticks < 20_000:
+        group.tick()
+        if t_first is None and all(r.generated for r in trace):
+            _sync()
+            t_first = time.perf_counter()
+            first_tokens = sum(len(r.generated) for r in trace)
+    _sync()
+    t_end = time.perf_counter()
+    counts = kernels.launch_counts()
+    done = [r for rt in group.replicas for r in rt.finished]
+    if len(done) != len(trace) or any(len(r.generated) != NEW
+                                      for r in trace):
+        fail(f"fleet: {len(done)} of {len(trace)} requests finished, not "
+             f"every one with {NEW} tokens")
+    for rt in group.replicas:
+        _check_replica(rt)
+    imported = [prompts[k] for k in moved["imports"]]
+    kinds = [k for rt in group.replicas for _, k, _ in rt.events]
+    dec = sum(len(r.generated) for r in trace) - first_tokens
+    log(f"[fleet] 2 replicas, {len(trace)} requests ({FLEET_GROUPS} system "
+        f"prompts of {FLEET_SYSTEM} tokens x {FLEET_SHARE}, +{FLEET_OWN} "
+        f"own): {group.ticks} rounds in {t_end - t0:.3f} s; decode after "
+        f"the last first token: {dec} tokens in {t_end - t_first:.3f} s = "
+        f"{dec / (t_end - t_first):.1f} tok/s; events {Counter(kinds)}; "
+        f"fleet cache {dataclasses.asdict(fc.stats)}")
+    log(f"[fleet] launches {counts}")
+    log(f"[fleet] exported {moved['exported']} bytes, imported "
+        f"{moved['imported']} bytes in {len(imported)} imports ("
+        f"{[r.rid for r in imported]}); export+import {moved['ms']:.3f} ms; "
+        f"imported pages torch.equal to the donor's export after each")
+    if not moved["imported"] > 0 or not fc.stats.fetch_bytes > 0:
+        fail("fleet: no prefix was imported")
+    if "remap" in kinds:
+        fail("fleet: a replica remapped (a donated layer grows the pool by "
+             "26,626 pages; this phase must run inside its base pool)")
+    if DEVICE == "cuda" and not (counts["paged_prefill_attention"] > 0
+                                 and counts["paged_decode_attention"] > 0):
+        fail(f"fleet: a kernel of the path never launched: {counts}")
+    # each request that used an imported span, against a lone engine's
+    # monolithic prefill of its whole prompt (flash kernel)
+    lone = ServingEngine(
+        {name: TenantConfig(cfg, params, max_batch=8,
+                            max_context=max_context, paged=True)},
+        mode="mirage", base_kv_pages=FLEET_PAGES, page_size=PAGE,
+        device=DEVICE, keep_prefill_logits=True)
+    lone.submit([Request(r.rid, name, originals[r.rid], max_new_tokens=1)
+                 for r in imported])
+    kernels.reset_launch_counts()
+    lone.run()
+    _sync()
+    c_lone = kernels.launch_counts()
+    if DEVICE == "cuda" and not c_lone["flash_attention"] > 0:
+        fail(f"fleet: the lone engine's prefill never launched flash: "
+             f"{c_lone}")
+    worst = 0.0
+    for r in imported:
+        rt = group.replicas[group.router.assignments[r.rid]]
+        a, b = lone.prefill_logits[r.rid], rt.prefill_logits[r.rid]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            fail(f"fleet: non-finite prefill logits for {r.rid}")
+        if r.prefix_matched_tokens < FLEET_SYSTEM:
+            fail(f"fleet: {r.rid} matched {r.prefix_matched_tokens} cached "
+                 f"tokens, not the imported {FLEET_SYSTEM}")
+        worst = max(worst, ((a - b).abs().max() / a.abs().max()).item())
+    log(f"[fleet] first-token logits of the {len(imported)} requests on "
+        f"imported spans against a lone monolithic prefill: "
+        f"max|d|/max|logit| = {worst:.3g} (tolerance {LOGIT_RTOL}); peak "
+        f"memory {_peak() / 2**30:.2f} GiB")
+    if not worst <= LOGIT_RTOL:
+        fail(f"fleet: prefill logits after an import differ by {worst}")
+    del lone, group, params, model
+    _free()
+    return Counter(counts) + Counter(c_lone)
+
+
+def _pool_bytes(rt) -> int:
+    return sum(t.state[k].numel() * t.state[k].element_size()
+               for t in rt.tenants.values() if t.paged
+               for k in ("pool_k", "pool_v"))
+
+
+def phase_fleet_scale(cfg=dataclasses.replace(ARCHS["llama3-8b"],
+                                              num_layers=2)):
+    """13(b): phase 4's tenants on a 2-replica group with coordinated
+    remaps; a replica is removed while it is remapped (respill, forced
+    reversion, teardown) and a pre-warmed one joins."""
+    _reset_peak()
+    tp = {n: build_model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+        for n, seed in (("A", 1), ("B", 2))}
+    conf = RuntimeConfig(
+        tenants={n: TenantSpec(cfg, params=p, max_batch=4, max_context=128,
+                               paged=True) for n, p in tp.items()},
+        mode="mirage", quantum_steps=8, prefill_chunk_tokens=64,
+        prefix_sharing=True)
+    # no Dynamic Reversion: the removed replica's layers come back only
+    # through its forced drain
+    build_kw = dict(base_kv_pages=SCALE_PAGES, page_size=PAGE,
+                    runtime=EngineKnobs(dynamic_reversion=False),
+                    device=DEVICE)
+    fc = FleetPrefixCache(page_size=PAGE)
+    group = ReplicaGroup.from_config(conf, 2, backend="engine",
+                                     coordinate=True, fleet_cache=fc,
+                                     **build_kw)
+    trace = tiny_trace(["A", "B"], n_per_model=6, prompt_len=SCALE_PROMPT,
+                       max_new=SCALE_NEW, vocab=cfg.vocab_size, seed=1)
+    # both tenants on each replica: the least-loaded router alternates, so
+    # order the first 8 A, A, B, B, ...; the last 4 come after the scale-in
+    order = sorted(trace, key=lambda r: (int(r.rid.split("-")[1]) // 2,
+                                         r.model, r.rid))
+    for i, r in enumerate(order):
+        r.arrival = 0.01 * i if i < 8 else SCALE_LATE + 4.0 * (i - 8)
+    moved = _fleet_log()
+    for rt in group.replicas:
+        instrument_fleet(rt, moved)
+    kernels.reset_launch_counts()
+    group.submit(trace)
+    removed = joined = None
+    while group.busy() and group.ticks < 20_000:
+        group.tick()
+        if removed is None:
+            hot = [i for i, rt in enumerate(group.replicas)
+                   if rt.store.total_remapped_bytes() > 0]
+            if hot:
+                removed = group.replicas[hot[0]]
+                # what the group's own withdraw_pending call will respill
+                respilled = removed.withdraw_pending()
+                removed.submit(respilled)
+                remap_alpha = {n: m.remapped_alpha
+                               for n, m in removed.store.models.items()}
+                group.remove_replica(hot[0])
+        elif joined is None and removed not in group.replicas:
+            joined = conf.build("engine", **build_kw)
+            instrument_fleet(joined, moved)
+            group.add_replica(joined, prewarm=True,
+                              prewarm_blocks=SCALE_PREWARM_BLOCKS)
+            donor = group.replicas[0]
+            snap = donor.prefix_snapshot(SCALE_PREWARM_BLOCKS)
+            probes = [(donor.prefix_probe(m, tok), joined.prefix_probe(m, tok))
+                      for m, tok in snap]
+    _sync()
+    counts = kernels.launch_counts()
+    if removed is None or joined is None:
+        fail(f"fleet-scale: no replica remapped, or the scale-in never "
+             f"completed (membership {group.events})")
+    done = [r for rt in [*group.replicas, removed] for r in rt.finished]
+    if len(done) != len(trace) or any(len(r.generated) != SCALE_NEW
+                                      for r in trace):
+        fail(f"fleet-scale: {len(done)} of {len(trace)} requests finished, "
+             f"not every one with {SCALE_NEW} tokens")
+    kinds = [k for _, k, _ in removed.events]
+    cycle = [x.shape[0] for n in removed.xfer.split
+             for x in tree_leaves(removed.xfer.split[n][1])]
+    log(f"[fleet-scale] membership {group.events}; removed replica: remapped "
+        f"alpha {remap_alpha} at removal, events {Counter(kinds)}, "
+        f"respilled {len(respilled)}, host->device fetch bytes "
+        f"{removed.xfer.host_fetch_bytes}, TransferStats "
+        f"{dataclasses.asdict(removed.xfer.stats)}, cycle layers left "
+        f"{sum(cycle)}")
+    if not removed.xfer.stats.stream_bytes > 0 or (
+            DEVICE == "cuda" and not removed.xfer.host_fetch_bytes > 0):
+        fail("fleet-scale: the removed replica never decoded from streamed "
+             "layers")
+    if any(m.remapped_alpha for m in removed.store.models.values()) \
+            or removed.xfer.pending or sum(cycle) \
+            or "revert-teardown" not in kinds:
+        fail("fleet-scale: the removed replica was not fully reverted")
+    for rt in group.replicas:
+        _check_replica(rt)
+    log(f"[fleet-scale] pre-warm: {len(probes)} spans, donor/joiner probes "
+        f"{probes}; exported {moved['exported']} bytes, imported "
+        f"{moved['imported']} bytes in {moved['ms']:.3f} ms")
+    if not probes or not moved["imported"] > 0 or any(
+            a != b for a, b in probes):
+        fail("fleet-scale: the pre-warmed replica does not hold the donor's "
+             "spans")
+    log(f"[fleet-scale] {sum(len(r.generated) for r in trace)} tokens; peak "
+        f"memory {_peak() / 2**30:.2f} GiB")
+    # the group keeps a retired unit (its finished requests stay in the
+    # fleet's metrics); the pool goes once the group does
+    pool = _pool_bytes(removed)
+    gone = weakref.ref(removed)
+    survivors = list(group.replicas)
+    gc.collect()
+    _sync()
+    before = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    del removed, group, joined, donor
+    gc.collect()
+    after = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    log(f"[fleet-scale] dropping the removed replica: memory allocated "
+        f"{before / 2**30:.2f} -> {after / 2**30:.2f} GiB; its pools held "
+        f"{pool / 2**30:.2f} GiB")
+    if gone() is not None or (DEVICE == "cuda" and before - after < pool):
+        fail("fleet-scale: the removed replica's pools were not released")
+    del survivors, tp
+    _free()
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     t0 = time.perf_counter()
@@ -1915,7 +2259,8 @@ def main() -> None:
     launches = Counter()
     for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
                   phase_moonshot, phase_jamba, phase_danube, phase_whisper,
-                  phase_whisper_remap, phase_llava):
+                  phase_whisper_remap, phase_llava, phase_fleet_import,
+                  phase_fleet_scale):
         launches.update(phase())
     log(f"[launches] every serving phase: {dict(launches)}")
     rows = []

@@ -30,9 +30,12 @@ remapped dense tenant streams its cycling repeats (one repeat = one
 pattern period of layers, a decoder layer for enc-dec) from pinned host
 memory exactly as a paged one does. A paged VLM or enc-dec tenant is
 refused (``ValueError``): the reference has no correct answer for either
-(ROADMAP queue 3). The fleet hooks (``export_prefix``/``import_prefix``/
-``prefix_snapshot``/``withdraw_pending``/``drain_for_removal``) raise
-``NotImplementedError``: they wait for a later slice (ROADMAP).
+(ROADMAP queue 3). The fleet hooks of the cluster layer move real K/V
+pages between replicas: ``export_prefix`` gathers a cached prefix's pages
+from the pools into CPU tensors, ``import_prefix`` writes them into fresh
+pages of another engine's pools in place; ``prefix_snapshot``,
+``withdraw_pending`` and ``drain_for_removal`` (scale-out pre-warm and
+scale-in) are the reference's, unchanged.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from repro_torch.configs.base import ModelConfig, RuntimeConfig
 from repro_torch.core import (
     ControllerConfig, MetadataStore, MemoryInfo, ModelInfo,
     PagedKVAllocator, PrefixIndex, RemapDecision, RemappingController,
-    TransferEngine, make_fetch,
+    TransferEngine, identity_plan, make_fetch,
 )
 from repro_torch.models import build_model
 from repro_torch.models.common import dtype_of, tree_bytes, tree_leaves
@@ -62,8 +65,6 @@ from repro_torch.serving.scheduler import admission_watermark, make_scheduler
 from repro_torch.serving.slo import (
     SLOSpec, preemption_victim, runtime_tenant_slack, tier_rank,
 )
-
-_LATER = "waits for a later slice of the port (ROADMAP)"
 
 
 def execute_remap_decision(allocator, store, elastic_pages, d, *,
@@ -453,11 +454,28 @@ class ServingEngine:
 
     def export_prefix(self, model: str, tokens, n_tokens: int):
         """Gather the real KV of the leading cached blocks of ``tokens``
-        (up to ``n_tokens``) for a peer replica: returns ``(k, v)`` page
-        arrays of shape ``(repeats, blocks, page_size, kv_heads, head_dim)``
-        or None when nothing is cached. Uses ``match`` (LRU-refreshing,
-        stats-free): an export IS a use of those blocks."""
-        raise NotImplementedError(f"export_prefix: {_LATER}")
+        (up to ``n_tokens``) for a peer replica: returns ``(k, v)`` CPU
+        tensors of shape ``(repeats, blocks, page_size, kv_heads,
+        head_dim)`` in the pool's dtype, or None when nothing is cached.
+        The device-to-host copy is complete when this returns. Uses
+        ``match`` (LRU-refreshing, stats-free): an export IS a use of those
+        blocks."""
+        idx = self.prefix.get(model)
+        t = self.tenants.get(model)
+        if idx is None or t is None or not t.paged or t.state is None:
+            return None
+        ps = self.allocator.page_size
+        nblk = max(int(n_tokens), 0) // ps
+        if nblk <= 0:
+            return None
+        m = idx.match(tokens, max_tokens=nblk * ps, record=False)
+        if not m.pages:
+            return None
+        pages = torch.tensor(m.pages[:nblk], dtype=torch.long,
+                             device=t.device)
+        # index_select copies out of the pool; .cpu() waits for the copy
+        return (t.state["pool_k"].index_select(1, pages).cpu(),
+                t.state["pool_v"].index_select(1, pages).cpu())
 
     def import_prefix(self, model: str, tokens, n_tokens: int,
                       kv=None) -> int:
@@ -468,7 +486,46 @@ class ServingEngine:
         reference that keeps them alive (``cache_hold``). Blocks already
         cached locally are skipped (only the delta is imported). Returns
         the tokens imported."""
-        raise NotImplementedError(f"import_prefix: {_LATER}")
+        idx = self.prefix.get(model)
+        t = self.tenants.get(model)
+        if idx is None or t is None or not t.paged or t.state is None \
+                or kv is None:
+            return 0
+        k, v = kv
+        ps = self.allocator.page_size
+        nblk = min(max(int(n_tokens), 0), len(tokens),
+                   k.shape[1] * ps) // ps
+        have = idx.peek(tokens, max_tokens=nblk * ps) // ps
+        if nblk <= have:
+            return 0
+        new_blocks = nblk - have
+        self._import_seq += 1
+        rid = f"__prefix_import_{self._import_seq}"
+        pages = self.allocator.allocate(rid, new_blocks * ps)
+        if pages is None:
+            self._reclaim(new_blocks - self.allocator.free_pages)
+            pages = self.allocator.allocate(rid, new_blocks * ps)
+            if pages is None:
+                return 0
+        # written in place: the pools are only ever replaced whole (by
+        # grow_pool), and nothing holds one across steps but ``t.state``
+        pool_k, pool_v = t.state["pool_k"], t.state["pool_v"]
+        at = torch.tensor(pages, dtype=torch.long, device=pool_k.device)
+        for pool, src in ((pool_k, k), (pool_v, v)):
+            pool.index_copy_(1, at, torch.as_tensor(
+                src[:, have:nblk], dtype=pool.dtype, device=pool.device))
+        # the trie path beyond block ``have`` cannot exist locally (trie
+        # property: a missing block severs every deeper node on the path),
+        # so insert consumes exactly our fresh pages
+        page_seq = [-1] * have + list(pages)
+        new_pages, _path = idx.insert(tokens, page_seq,
+                                      max_tokens=nblk * ps)
+        assert new_pages == list(pages), (new_pages, pages)
+        self.allocator.cache_hold(new_pages)
+        self.allocator.free(rid)
+        self.events.append((self.step_idx, "prefix-import",
+                            f"{model} blocks={len(new_pages)}"))
+        return len(new_pages) * ps
 
     def prefix_snapshot(self, max_blocks: int = 0):
         """Every maximal cached prefix as ``(model, tokens)`` pairs — the
@@ -476,14 +533,23 @@ class ServingEngine:
         bounds the total blocks, 0 = unbounded). The joining replica
         imports each span through ``export_prefix``/``import_prefix``, so
         the real KV pages cross with it."""
-        raise NotImplementedError(f"prefix_snapshot: {_LATER}")
+        out = []
+        budget = max_blocks if max_blocks > 0 else None
+        for n, idx in self.prefix.items():
+            paths = idx.paths(budget)
+            if budget is not None:
+                budget -= sum(len(p) // idx.page_size for p in paths)
+            out.extend((n, p) for p in paths)
+        return out
 
     # ------------------------------------------- replica lifecycle hooks
     def withdraw_pending(self) -> List[Request]:
         """Pull back every submitted-but-not-yet-admitted arrival so the
         cluster layer can respill it to another replica at scale-in.
         Requests already admitted (queued/running) finish here."""
-        raise NotImplementedError(f"withdraw_pending: {_LATER}")
+        out = list(self._incoming)
+        self._incoming.clear()
+        return out
 
     def drain_for_removal(self) -> None:
         """Force reversion of every donated parameter segment before
@@ -491,9 +557,31 @@ class ServingEngine:
         released back level by level — exactly the controller's one-step
         revert semantics, including the cached-prefix drop and the
         pages-in-use undo — and the restored layers' host->device traffic
-        drains through the TransferEngine one unit per step. Idempotent;
-        call once the replica's inflight work is gone."""
-        raise NotImplementedError(f"drain_for_removal: {_LATER}")
+        drains through the TransferEngine one unit per step; once it has,
+        the tenant's split is resident again and its pinned cycle stack is
+        released. Idempotent; call once the replica's inflight work is
+        gone."""
+        if self.mode != "mirage":
+            return
+        for name, info in self.store.models.items():
+            progressed = False
+            while info.remapped_alpha > 0:
+                target = info.remapped_alpha - 1
+                self.store.apply_remap(name, target)
+                d = RemapDecision(name, target,
+                                  identity_plan(info.num_layers),
+                                  reverted=True)
+                out = execute_remap_decision(
+                    self.allocator, self.store, self._elastic_pages, d,
+                    drop_cached=self._drop_cached_in_segments
+                    if self.prefix else None)
+                if out == "undone":
+                    break       # pages still in use: retry next tick
+                progressed = True
+            if progressed:
+                self.xfer.submit_plan(name, identity_plan(info.num_layers))
+                self.events.append(
+                    (self.step_idx, "revert-teardown", name))
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         while self.step_idx < max_steps and self.busy():

@@ -75,7 +75,8 @@ class PerfModel:
             # the sharded model needs the port of distributed/ (ROADMAP,
             # queue 1: distributed and launch)
             raise NotImplementedError(
-                "PerfModel(shards > 1) waits for the port of distributed/")
+                "PerfModel(shards > 1) waits for the port of distributed/ "
+                "(ROADMAP)")
 
     # ------------------------------------------------------------ collectives
     def collective_time(self, tokens: int) -> float:

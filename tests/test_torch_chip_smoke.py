@@ -1,8 +1,8 @@
 """chip_smoke.py's serve and remap phases (llama3-8b, xlstm-1.3b, moonshot,
-jamba, danube, whisper, llava), rehearsed on the CPU at a tiny size: the
-same engine calls, checks and printouts as on the card, with the kernels'
-plain versions (the script itself refuses to run without a CUDA device);
-and its pure helpers."""
+jamba, danube, whisper, llava) and its fleet phase, rehearsed on the CPU at
+a tiny size: the same engine calls, checks and printouts as on the card,
+with the kernels' plain versions (the script itself refuses to run without
+a CUDA device); and its pure helpers."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -149,6 +149,50 @@ def test_vlm_phase_runs(small_encdec_vlm, capsys):
     assert "one decode step at position 36 (token" in out
     assert "after 16 patch rows and 20 prompt tokens" in out
 
+
+@pytest.fixture
+def fleet_on_cpu(monkeypatch):
+    """Phase 13 at its own trace, pool and page sizes (routing and page
+    accounting are the card's, step for step) on a 2-layer, 128-wide llama
+    in bf16. The spec that prices import against recompute gets a slow
+    card, so that moving a 2-layer span also costs less than recomputing
+    it, as a full-width span does on GH200."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "FLEET_HW", dataclasses.replace(
+        chip_smoke.GH200, name="gh200-slow", flops_bf16=1e9))
+    return dataclasses.replace(scaled_config(ARCHS["llama3-8b"],
+                                             num_layers=2), dtype="bfloat16")
+
+
+def test_fleet_phase_runs(fleet_on_cpu, capsys):
+    counts = chip_smoke.phase_fleet_import(fleet_on_cpu)
+    assert counts["paged_prefill_attention"] == 0   # the plain versions
+    chip_smoke.phase_fleet_scale(fleet_on_cpu)
+    out = capsys.readouterr().out
+    # 4 spans of 384 tokens, 2 layers x 2 kv heads x 32 x (K, V) x 2 bytes
+    span = 384 * 2 * 2 * 32 * 2 * 2
+    assert f"imported {4 * span} bytes in 4 imports" in out
+    assert "imported pages torch.equal to the donor's export" in out
+    assert "first-token logits of the 4 requests on imported spans" in out
+    assert "'revert-teardown': 1" in out
+    assert "cycle layers left 0" in out
+    assert "(96, 96), (96, 96)" in out
+
+
+def test_fleet_phase_sees_a_wrong_import(fleet_on_cpu, monkeypatch):
+    """An import that writes anything but the donor's pages fails the
+    phase at the first import."""
+    from repro_torch.serving import ServingEngine
+
+    real = ServingEngine.import_prefix
+
+    def shifted(self, model, tokens, n_tokens, kv=None):
+        return real(self, model, tokens, n_tokens,
+                    kv=None if kv is None else (kv[0] + 1, kv[1]))
+
+    monkeypatch.setattr(ServingEngine, "import_prefix", shifted)
+    with pytest.raises(SystemExit, match="differ from the donor's export"):
+        chip_smoke.phase_fleet_import(fleet_on_cpu)
 
 def test_decode_check_sees_a_lost_src_len():
     """Phase 10's decode/no-cache check on whisper (f32, scaled): passes

@@ -3,6 +3,10 @@ to their JAX-package originals on the same inputs: each scripted scenario
 runs once against ``repro`` and once against ``repro_torch``."""
 import dataclasses
 import importlib
+import math
+import tempfile
+import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,6 +15,7 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 PKGS = ("repro", "repro_torch")
+TRACES = Path(__file__).resolve().parents[1] / "benchmarks" / "traces"
 
 
 def _mod(pkg, name):
@@ -161,8 +166,136 @@ def serving_script(pkg):
     return out
 
 
+def trace_replay_script(pkg):
+    """Synthetic records, both committed sample traces (read only), their
+    CSV formats, the lowering to requests and its warnings, and the
+    sample writer into a temporary directory."""
+    tr = _mod(pkg, "serving.trace_replay")
+    recs = tr.synth_records(120, seed=5, models=("ChatGPT", "GPT-4"),
+                            model_weights=(0.5, 0.5))
+    out = [recs, tr.format_azure_csv(recs[:20]),
+           tr.format_burstgpt_csv(recs[:20])]
+    for name in ("azure_llm_sample.csv", "burstgpt_sample.csv"):
+        records, fmt = tr.load_trace(TRACES / name)
+        out += [fmt, len(records), records[::25]]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for model_map in ("solo", {"ChatGPT": "a", "*": "b"},
+                          {"GPT-4": "x"}, ["p", "q"]):
+            reqs = tr.replay_trace(recs, model_map, time_scale=0.5,
+                                   max_requests=40, seed=2,
+                                   max_prompt_tokens=512)
+            out.append([(r.rid, r.model, r.arrival, r.prompt.tolist(),
+                         r.max_new_tokens) for r in reqs])
+        out.append(_try(tr.replay_trace, recs, {"none": "x"}))
+    out.append(sorted(str(w.message) for w in caught))
+    out.append(tr.records_from_requests(reqs))
+    spec = tr.ReplaySpec(model="t", path=str(TRACES / "azure_llm_sample.csv"),
+                         max_requests=30)
+    out.append([(r.rid, r.arrival, r.prompt_len) for r in spec.requests(3)])
+    with tempfile.TemporaryDirectory() as d:
+        out.append([Path(p).read_text() == (TRACES / Path(p).name).read_text()
+                    for p in tr.write_sample_traces(d)])
+    return out
+
+
+class _Unit:
+    """A replica as the router and the autoscaler see it."""
+
+    def __init__(self, load, pressure=0.0, draining=False, slack=None,
+                 shards=1):
+        self.load, self.p, self.d, self.slack = load, pressure, draining, slack
+        self.shards = shards
+
+    def inflight(self):
+        return self.load
+
+    def pressure(self):
+        return self.p
+
+    def draining(self):
+        return self.d
+
+    def tenant_slacks(self):
+        return {} if self.slack is None else {"m": self.slack}
+
+
+def router_script(pkg):
+    cluster = _mod(pkg, "cluster")
+    Request = _mod(pkg, "serving.request").Request
+    units = [_Unit(3, 0.2, slack=1.0), _Unit(1, 0.5, slack=math.inf),
+             _Unit(1, 0.1, draining=True, slack=4.0),
+             _Unit(2, 0.0, slack=2.0, shards=2), _Unit(0, 0.9)]
+    out = []
+    for policy in (cluster.LEAST_LOADED, cluster.SLACK_AWARE,
+                   cluster.PREFIX_AFFINITY):
+        r = cluster.Router(policy, seed=7)
+        for i in range(12):
+            req = Request(f"r{i}", "m",
+                          np.arange(i % 5, i % 5 + 40, dtype=np.int32),
+                          max_new_tokens=4,
+                          session=f"s{i % 3}" if i % 2 else "")
+            pick = r.route(req, units,
+                           prefer={1, 3} if i % 4 == 0 else None,
+                           routable=[0, 2, 3] if i % 3 == 0 else None)
+            units[pick].load += 1
+            out.append(pick)
+        r.forget_replica(1)
+        out.append(dict(r.assignments))
+    out.append(_try(cluster.Router, "nope"))
+    return out
+
+
+def autoscaler_script(pkg):
+    """The three scaling policies over windows of signals, the victim
+    choice, and an autoscaler driving a simulator-backed fleet."""
+    cl = _mod(pkg, "cluster")
+    serving = _mod(pkg, "serving")
+    traces = _mod(pkg, "serving.traces")
+    sig = cl.FleetSignal
+    out = []
+    windows = [[], [sig(t, 24, 0.3, math.inf, 0, 2) for t in range(4)],
+               [sig(t, 2, 0.1, 9.0, 0, 2) for t in range(4)],
+               [sig(0, 2, 0.1, 9.0, 3, 2), sig(1, 16, 0.9, 0.2, 0, 2)],
+               [sig(t, 16, 0.5, 5.0, 0, 2) for t in range(6, 9)]]
+    for pol in (cl.TargetUtilizationPolicy(target_inflight=8.0),
+                cl.SLOSlackPolicy(slack_out=0.5, slack_in=4.0),
+                cl.SchedulePolicy(steps=[(1.0, 3), (7.0, 1)])):
+        out.append([pol.desired(w, 2) for w in windows])
+
+    class G:
+        replicas = [_Unit(3), _Unit(1), _Unit(1)]
+        states = [cl.ACTIVE, cl.ACTIVE, cl.ACTIVE]
+
+    for states in ([cl.ACTIVE] * 3, [cl.ACTIVE, cl.ACTIVE, cl.LEAVING],
+                   [cl.ACTIVE, cl.LEAVING, cl.LEAVING]):
+        G.states = states
+        out.append(cl.Autoscaler._victim(G))
+    arch = _mod(pkg, "configs").ARCHS["llama3-8b"]
+    hw = _mod(pkg, "serving.hw").GH200
+    pm = _mod(pkg, "serving.perf_model").PerfModel(arch, hw)
+    conf = serving.RuntimeConfig(
+        tenants={"m": serving.TenantSpec(
+            arch, max_batch=8, mem_fraction=(pm.param_bytes + 2**30)
+            / hw.hbm_bytes, slo=serving.SLOSpec(1.0, 0.05, serving.LATENCY))},
+        mode="mirage", scheduler="slo", prefix_sharing=True)
+    sc = cl.Autoscaler(policy=cl.SLOSlackPolicy(slack_out=0.4, slack_in=6.0),
+                       min_replicas=1, max_replicas=3, window=2.0,
+                       cooldown=1.0, prewarm=True)
+    fc = cl.FleetPrefixCache(page_size=32)
+    g = cl.ReplicaGroup.from_config(conf, 1, backend="sim", fleet_cache=fc,
+                                    autoscaler=sc)
+    met = g.run(traces.make_trace(
+        [traces.TraceSpec("m", "sharegpt", 20.0, duration=2.0,
+                          burstiness=1.0)], seed=1))
+    out += [sc.decisions, g.events, g.finished_count, _plain(fc.stats),
+            _plain(met), g.replica_seconds]
+    return out
+
+
 SCENARIOS = [plan_sweep, plan_drain, allocator_script, controller_script,
-             prefix_script, serving_script]
+             prefix_script, serving_script, trace_replay_script,
+             router_script, autoscaler_script]
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)

@@ -13,7 +13,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FIRST = ["repro_torch.kernels", "repro_torch.models", "repro_torch.core",
-         "repro_torch.serving", "repro_torch.configs", "chip_smoke"]
+         "repro_torch.serving", "repro_torch.configs", "repro_torch.cluster",
+         "chip_smoke"]
 
 PROBE = """
 import importlib, pkgutil, sys
