@@ -100,9 +100,35 @@ no CUDA device or any phase fails. Phases:
    and its pools must be freed once it is dropped; then a replica joins
    pre-warmed from the survivor's prefix cache and must probe every
    snapshot span as the donor does.
-14. the kernels line (JSON; launches summed over phases 3-13; each kernel's
-   ``shapes`` lists phase 2's timed shape rows) and, last, the result line
-   (JSON).
+14. train: (a) llama3-8b at full width, cut to 8 of its 32 layers (2.80 B
+   params; with AdamW's f32 moments and the f32 clipped gradients ~45 GB,
+   so 16 layers, 72.6 GB before any activation, or all 32 do not fit one
+   card), bf16,
+   AdamW, ``remat_policy="dots_saveable"``, one sequence of 4096 tokens
+   (train_4k's, its global batch of 256 cut to 1) through
+   ``make_train_step``: 3 steps on fresh batches, then 10 on one fixed batch
+   whose loss must fall; every loss and grad norm finite, every parameter
+   leaf with a nonzero gradient at every step (a kernel output without
+   ``grad_fn`` would leave its projections none), forward, backward and
+   optimizer timed by CUDA events, tokens/s, peak memory, launches a step
+   (flash runs each attention forward, again in the recompute) and, from
+   the profiled last step, the device's idle share. (b) the same width cut
+   to 2 layers at 512 tokens: the loss and each leaf's gradient on the card
+   (bf16, kernels) against the same weights in f32 on the CPU (plain
+   versions). (c) xlstm-1.3b at full width and depth (48 layers), bf16,
+   AdamW, no remat, 3 steps on one 512-token batch: the same checks and
+   times (no profile: its sLSTM loops launch ~10^5 kernels a step;
+   ``tools/profile_torch_train.py`` profiles it), ``ssd_scan`` in every
+   mLSTM forward. (d) the flash Function's dq, dk, dv
+   and the kernel's lse at (a)'s shape and at danube's window shape, and
+   the ssd Function's gradients at the xLSTM and Mamba widths, against
+   autograd through the plain versions. (e) the kernel at (a)'s shape with
+   its lse, the plain flash backward, and one causal SDPA forward (plus
+   backward) beside them as yardsticks; the ssd Function's plain backward
+   at xLSTM's shape.
+15. the kernels line (JSON; launches summed over phases 3-14; each kernel's
+   ``shapes`` lists phase 2's timed shape rows and phase 14's flash row)
+   and, last, the result line (JSON).
 """
 from __future__ import annotations
 
@@ -132,6 +158,7 @@ from repro_torch.cluster import (  # noqa: E402
 )
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.base import RuntimeConfig as EngineKnobs  # noqa: E402,E501
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -149,6 +176,10 @@ from repro_torch.serving.engine import stub_frontend_inputs  # noqa: E402
 from repro_torch.serving.hw import GH200  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
 from repro_torch.serving.traces import tiny_trace  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    OptimizerConfig, batch_for_step, make_optimizer, make_train_step,
+)
+from repro_torch.training.optimizer import Optimizer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
@@ -2248,21 +2279,460 @@ def phase_fleet_scale(cfg=dataclasses.replace(ARCHS["llama3-8b"],
     return counts
 
 
+# ---------------------------------------------------------------- phase 14
+# (a) llama3-8b at full width, cut to TRAIN_LAYERS of its 32 layers: 2.80 B
+# params, about 16 bytes each with AdamW (bf16 params and grads, the f32
+# clipped grads, f32 mu and nu: ~45 GB) plus the activations; 16 layers
+# (72.6 GB before any activation) or all 32 do not fit one card. One
+# sequence of train_4k's 4096 tokens (its global batch of 256 cut to 1).
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH = 8, 4096, 1
+TRAIN_STEPS, FIXED_STEPS = 3, 10     # varying batches, then one fixed batch
+TRAIN_REMAT = "dots_saveable"
+TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=10)
+# (b) the same width cut to CHECK_LAYERS layers at CHECK_SEQ tokens: loss and
+# every leaf's gradient on the card (bf16, kernels) against the same
+# weights in f32 on the CPU (plain versions). bf16 keeps 8 significant bits:
+# every product's output, activation and gradient on the card is rounded to
+# it (2^-9 relative each), and the errors add up through the two layers, the
+# 128256-way softmax and the backward, to ~1e-2 of a gradient leaf's norm
+# (and far less of the loss, an average over 512 tokens). A gradient left
+# out (a kernel output without grad_fn) is an error of 1.0.
+CHECK_LAYERS, CHECK_SEQ = 2, 512
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 2e-2, 5e-2
+# (c) xlstm-1.3b at full width and depth, one 512-token sequence, without
+# remat (the launcher's default): under dots_saveable the nested
+# checkpoints (per repeat, per layer, per sLSTM chunk) run each sLSTM time
+# loop four times a step (303,701 launches a step on an H100 host, ~18.5 s
+# of host-bound time; PERF.md); tools/profile_torch_train.py profiles
+# either
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_REMAT = 512, 3, "none"
+# (d) the kernels' gradients: FlashAttention's dq, dk, dv (kernel forward,
+# plain backward) against autograd through the plain forward in f32 on the
+# same bf16 inputs, relative Frobenius error: the bf16 rounding of the
+# kernel's output and of the returned gradients (2^-9 each) over f32 math
+FLASH_GRAD_RTOL = 2e-2
+# the kernel's lse against the plain m + log l in f32 on the same inputs:
+# both exponentiate f32 scores (the kernel in base 2 with ex2.approx, ~2^-22
+# relative) in another order, ~1e-5 at an lse of ~8; one key tile left out
+# moves it by log(1 - 64 / Sk) or more
+LSE_TOL = 1e-3
+# (Sq = Sk, Hq, Hkv, D, window): (a)'s attention; danube's window shape
+TRAIN_FLASH = {"llama3-8b": (4096, 32, 8, 128, 0),
+               "danube": (4608, 32, 8, 120, 4096)}
+
+
+def _mark():
+    """A point on the device's timeline (a CUDA event; the host clock for
+    a CPU rehearsal)."""
+    if DEVICE != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _between(a, b) -> float:
+    return a.elapsed_time(b) if DEVICE == "cuda" else (b - a) * 1e3
+
+
+def instrument_step(model, opt):
+    """Marks around the train step's parts on the model and the optimizer
+    it is given: forward (``Model.train_loss``), backward (the gradients
+    and their clip: from the loss to the optimizer) and optimizer
+    (``update``); and each step's largest |gradient| per parameter leaf,
+    from the clipped gradients the optimizer receives. Returns (optimizer,
+    marks: per step [forward start, forward end, update start, update end],
+    grad_max: per step a tensor over the leaves)."""
+    marks, grad_max = [], []
+    loss_fn = model.train_loss
+
+    def train_loss(*args, **kwargs):
+        marks.append([_mark()])
+        out = loss_fn(*args, **kwargs)
+        marks[-1].append(_mark())
+        return out
+
+    def update(grads, state, params):
+        marks[-1].append(_mark())
+        grad_max.append(torch.stack([g.abs().amax()
+                                     for g in tree_leaves(grads)]))
+        out = opt.update(grads, state, params)
+        marks[-1].append(_mark())
+        return out
+    model.train_loss = train_loss
+    return Optimizer(opt.init, update), marks, grad_max
+
+
+def train_run(tag, model, params, batches, remat=TRAIN_REMAT,
+              profile_last=False):
+    """AdamW steps through ``make_train_step`` on ``batches`` (one a step),
+    each timed: forward, backward and optimizer by marks on the device's
+    timeline, the step's wall time on the host. Launch counts are reset
+    just before the steps and read just after. With ``profile_last``, the
+    last step runs under the profiler (launches, device time, idle share
+    against the mean wall time of the others). Returns (records, launch
+    counts, profile or None)."""
+    opt, marks, grad_max = instrument_step(
+        model, make_optimizer(OptimizerConfig(**TRAIN_OPT)))
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt, remat_policy=remat)
+    _sync()
+    kernels.reset_launch_counts()
+    recs, prof = [], None
+    for i, batch in enumerate(batches):
+        def one():
+            nonlocal params, opt_state
+            params, opt_state, m = step(params, opt_state, batch)
+            return m
+        if profile_last and i == len(batches) - 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                m = one()
+                _sync()
+                prof_wall = time.perf_counter() - t0
+            avg = p.key_averages()
+            prof = {"launches": sum(e.count for e in avg
+                                    if e.key in _LAUNCH_KEYS),
+                    "dev_ms": sum(e.self_device_time_total for e in avg
+                                  if str(getattr(e, "device_type", ""))
+                                  .endswith("CUDA")) / 1e3,
+                    "prof_ms": prof_wall * 1e3}
+            wall = prof_wall
+        else:
+            t0 = time.perf_counter()
+            m = one()
+            _sync()
+            wall = time.perf_counter() - t0
+        recs.append({"loss": m["loss"].item(),
+                     "grad_norm": m["grad_norm"].item(),
+                     "wall_ms": wall * 1e3})
+    counts = kernels.launch_counts()
+    _sync()
+    for rec, mk, gm in zip(recs, marks, grad_max):
+        rec["fwd_ms"] = _between(mk[0], mk[1])
+        rec["bwd_ms"] = _between(mk[1], mk[2])
+        rec["opt_ms"] = _between(mk[2], mk[3])
+        rec["zero_grad_leaves"] = int((gm == 0).sum())
+    for i, r in enumerate(recs):
+        log(f"[{tag}] step {i}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.4f}; forward {r['fwd_ms']:.1f} ms, backward "
+            f"{r['bwd_ms']:.1f} ms, optimizer {r['opt_ms']:.1f} ms, wall "
+            f"{r['wall_ms']:.1f} ms"
+            + (" (profiled)" if prof is not None and i == len(recs) - 1
+               else ""))
+    bad = [i for i, r in enumerate(recs)
+           if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]))]
+    if bad:
+        fail(f"{tag}: non-finite loss or grad norm at steps {bad}")
+    zero = [(i, r["zero_grad_leaves"]) for i, r in enumerate(recs)
+            if r["zero_grad_leaves"]]
+    if zero:
+        fail(f"{tag}: parameter leaves with an all-zero gradient (step, "
+             f"count): {zero}")
+    return recs, counts, prof
+
+
+def _summary(tag, recs, counts, prof, tokens, steps_from=1):
+    """Mean forward, backward and optimizer ms and tokens/s over the steps
+    from ``steps_from`` (the first one warms up) that were not profiled."""
+    plain_recs = recs[steps_from:len(recs) - (prof is not None)]
+    mean = {k: sum(r[k] for r in plain_recs) / len(plain_recs)
+            for k in ("fwd_ms", "bwd_ms", "opt_ms", "wall_ms")}
+    n = len(recs)
+    per_step = {k: v / n for k, v in counts.items() if v}
+    last = steps_from + len(plain_recs) - 1
+    log(f"[{tag}] mean of steps {steps_from}-{last}: forward "
+        f"{mean['fwd_ms']:.1f} ms, backward {mean['bwd_ms']:.1f} ms, "
+        f"optimizer {mean['opt_ms']:.1f} ms, wall {mean['wall_ms']:.1f} "
+        f"ms; {tokens / mean['wall_ms'] * 1e3:.0f} tokens/s; kernel launches "
+        f"a step {per_step}; peak memory {_peak() / 2**30:.2f} GiB")
+    if prof is not None:
+        log(f"[{tag}] profiled step: {prof['launches']:.0f} kernel launches, "
+            f"device {prof['dev_ms']:.1f} ms, wall under the profiler "
+            f"{prof['prof_ms']:.1f} ms; device idle share "
+            f"{max(0.0, 1 - prof['dev_ms'] / mean['wall_ms']):.3f} of an "
+            f"unprofiled step")
+    return mean
+
+
+def train_batches(model, seq, seeds):
+    shape = ShapeConfig("train", seq, TRAIN_BATCH, "train")
+    return [batch_for_step(model, shape, 0, s, device=DEVICE) for s in seeds]
+
+
+def phase_train_llama(cfg=dataclasses.replace(ARCHS["llama3-8b"],
+                                              num_layers=TRAIN_LAYERS)):
+    """(a) llama3-8b, full width, TRAIN_LAYERS layers, bf16, AdamW,
+    dots_saveable: TRAIN_STEPS steps on fresh batches, then FIXED_STEPS on
+    one fixed batch whose loss must fall."""
+    _reset_peak()
+    model, params = _init(cfg, 18, "train", f"d_ff {cfg.d_ff}, ")
+    batches = train_batches(model, TRAIN_SEQ, range(TRAIN_STEPS))
+    batches += train_batches(model, TRAIN_SEQ, [TRAIN_STEPS]) * FIXED_STEPS
+    recs, counts, prof = train_run("train", model, params, batches,
+                                   profile_last=True)
+    n_attn = sum(ld.mixer == "attn" for ld in model.impl.pattern) \
+        * model.repeats
+    per_step = counts["flash_attention"] / len(recs)
+    log(f"[train] flash_attention launches a step {per_step:.0f} for "
+        f"{n_attn} attention layers (forward, and again in the recompute)")
+    if DEVICE == "cuda" and per_step < n_attn:
+        fail(f"train: flash launched {per_step} times a step for {n_attn} "
+             "attention layers")
+    fixed = [r["loss"] for r in recs[TRAIN_STEPS:]]
+    log(f"[train] fixed batch: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
+    if not fixed[-1] < fixed[0]:
+        fail(f"train: the fixed batch's loss did not fall: {fixed}")
+    _summary("train", recs, counts, prof, TRAIN_BATCH * TRAIN_SEQ)
+    del params, model, batches
+    _free()
+    return counts
+
+
+def loss_and_grads(model, params, batch, remat=TRAIN_REMAT):
+    """(loss, gradients in the params' leaf order) of ``Model.train_loss``."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    loss = model.train_loss(tree_map(lambda _: next(it), params), batch,
+                            remat_policy=remat)
+    return loss.detach(), torch.autograd.grad(
+        loss, leaves, allow_unused=True, materialize_grads=True)
+
+
+def _rel_fro(a, ref) -> float:
+    a, ref = a.float().cpu(), ref.float().cpu()
+    return ((a - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def check_train_against_cpu(cfg=dataclasses.replace(ARCHS["llama3-8b"],
+                                                    num_layers=CHECK_LAYERS)):
+    """(b) loss and per-leaf gradients of the card's bf16 step against the
+    CPU in f32 on the same weights and batch."""
+    model, params = _init(cfg, 19, "train-check", f"d_ff {cfg.d_ff}, ")
+    batch = train_batches(model, CHECK_SEQ, [0])[0]
+    loss, grads = loss_and_grads(model, params, batch)
+    cpu_cfg = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = loss_and_grads(
+        build_model(cpu_cfg), tree_map(lambda p: p.float().cpu(), params),
+        {k: v.cpu() for k, v in batch.items()})
+    paths = [p for p, _ in _leaf_paths(params)]
+    errs = {p: _rel_fro(g, r) for p, g, r in zip(paths, grads, ref_grads)}
+    le = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    worst = max(errs, key=errs.get)
+    log(f"[train-check] {CHECK_LAYERS} layers, S={CHECK_SEQ}: loss "
+        f"{loss.item():.5f} (card, bf16) vs {ref_loss.item():.5f} (CPU, f32, "
+        f"{time.perf_counter() - t0:.1f} s), rel err {le:.3g} (limit "
+        f"{TRAIN_LOSS_RTOL}); gradient rel Frobenius error per leaf: max "
+        f"{errs[worst]:.3g} at {worst} (limit {TRAIN_GRAD_RTOL}), median "
+        f"{sorted(errs.values())[len(errs) // 2]:.3g}")
+    log("[train-check] per leaf: " + ", ".join(
+        f"{p} {e:.3g}" for p, e in errs.items()))
+    if not le <= TRAIN_LOSS_RTOL:
+        fail(f"train-check: loss rel err {le} > {TRAIN_LOSS_RTOL}")
+    if not errs[worst] <= TRAIN_GRAD_RTOL:
+        fail(f"train-check: gradient of {worst}: rel err {errs[worst]} > "
+             f"{TRAIN_GRAD_RTOL}")
+    del params, model, grads
+    _free()
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree)
+                for x in _leaf_paths(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def phase_train_xlstm(cfg=ARCHS["xlstm-1.3b"]):
+    """(c) xlstm-1.3b at full width and depth, bf16, AdamW, no remat:
+    XLSTM_TRAIN_STEPS steps on one fixed 512-token batch (the loss must
+    fall), ssd_scan in every mLSTM forward."""
+    _reset_peak()
+    model, params = _init(cfg, 20, "train-xlstm", "")
+    batches = train_batches(model, XLSTM_TRAIN_SEQ, [0]) * XLSTM_TRAIN_STEPS
+    recs, counts, prof = train_run("train-xlstm", model, params, batches,
+                                   remat=XLSTM_TRAIN_REMAT)
+    if not recs[-1]["loss"] < recs[0]["loss"]:
+        fail(f"train-xlstm: the loss did not fall: "
+             f"{[r['loss'] for r in recs]}")
+    n_mlstm = sum(ld.mixer == "mlstm" for ld in model.impl.pattern) \
+        * model.repeats
+    per_step = counts["ssd_scan"] / len(recs)
+    log(f"[train-xlstm] ssd_scan launches a step {per_step:.0f} for "
+        f"{n_mlstm} mLSTM layers")
+    if DEVICE == "cuda" and per_step < n_mlstm:
+        fail(f"train-xlstm: ssd_scan launched {per_step} times a step for "
+             f"{n_mlstm} mLSTM layers")
+    _summary("train-xlstm", recs, counts, prof,
+             TRAIN_BATCH * XLSTM_TRAIN_SEQ)
+    del params, model, batches
+    _free()
+    return counts
+
+
+def _flash_train_inputs(gen, s, hq, hkv, d, dt=torch.bfloat16):
+    return [torch.randn(1, s, h, d, generator=gen, device=DEVICE).to(dt)
+            for h in (hq, hkv, hkv)]
+
+
+def _positions(s):
+    pos = torch.arange(s, dtype=torch.int32, device=DEVICE)[None]
+    return pos, pos, torch.ones(1, s, dtype=torch.bool, device=DEVICE)
+
+
+def check_train_kernels(gen):
+    """(d) the flash Function's gradients and the kernel's lse at (a)'s and
+    danube's shapes, and the ssd Function's gradients at the xLSTM and
+    Mamba widths, each against autograd through the plain version."""
+    for name, (s, hq, hkv, d, window) in TRAIN_FLASH.items():
+        q, k, v = _flash_train_inputs(gen, s, hq, hkv, d)
+        w = torch.randn(1, s, hq, d, generator=gen, device=DEVICE)
+        _, lse = flash_kernel.flash_attention(q, k, v, window=window,
+                                              lse=True)
+        ins = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = flash_ops.flash_attention(*ins, window=window)
+        got = torch.autograd.grad((out.float() * w).sum(), ins)
+        ref_ins = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        ref_out, ref_lse = plain.flash_fwd(*ref_ins, *_positions(s), True,
+                                           window, 512)
+        ref = torch.autograd.grad((ref_out * w).sum(), ref_ins)
+        _sync()
+        le = _err(lse, ref_lse)
+        errs = [_rel_fro(g, r) for g, r in zip(got, ref)]
+        log(f"[train-kernels] flash {name} (S={s}, {hq}/{hkv}, D={d}, window "
+            f"{window}): lse max_err {le:.3g} (limit {LSE_TOL}); dq, dk, dv "
+            f"rel Frobenius err {', '.join(f'{e:.3g}' for e in errs)} (limit "
+            f"{FLASH_GRAD_RTOL})")
+        if not le < LSE_TOL:
+            fail(f"flash lse at {name}: {le} >= {LSE_TOL}")
+        if not max(errs) < FLASH_GRAD_RTOL:
+            fail(f"flash gradients at {name}: {errs} >= {FLASH_GRAD_RTOL}")
+        del q, k, v, ins, out, got, ref_ins, ref_out, ref
+        _free()
+    from repro_torch.models.blocks import ssd_chunked
+    for b, t, h, dk, dv, what in SSD_CASES[::2]:
+        q, k, v, la = ssd_inputs(gen, b, t, h, dk, dv, what != "mamba")
+        wy = torch.randn(b, t, h, dv, generator=gen, device=DEVICE)
+        wf = torch.randn(b, h, dk, dv, generator=gen, device=DEVICE)
+
+        def grads(fn):
+            ins = [x.detach().requires_grad_() for x in (q, k, v, la)]
+            y, f = fn(*ins, chunk=128)
+            return torch.autograd.grad((y * wy).sum() + (f * wf).sum(), ins)
+        got, ref = grads(ssd_ops.ssd_scan), grads(ssd_chunked)
+        errs = [_rel(g.float(), r.float()) for g, r in zip(got, ref)]
+        log(f"[train-kernels] ssd_scan {what} (B={b} T={t} H={h} dk={dk} "
+            f"dv={dv}): dq, dk, dv, dlog_a err / max(1, max|ref|) "
+            f"{', '.join(f'{e:.3g}' for e in errs)} (limit {SSD_RTOL})")
+        if not max(errs) <= SSD_RTOL:
+            fail(f"ssd_scan gradients at {what}: {errs} > {SSD_RTOL}")
+
+
+def time_train_kernels(gen, rows):
+    """(e) at (a)'s attention shape: the kernel with and without its lse
+    output (graph replay) beside one causal SDPA forward; the plain
+    forward; the plain backward (``flash_bwd``) beside one causal SDPA
+    forward plus backward (eager calls, CUDA events); then the ssd
+    Function's plain backward at xLSTM's shape. Appends flash's row at
+    (a)'s shape to ``rows``."""
+    s, hq, hkv, d, _ = TRAIN_FLASH["llama3-8b"]
+    q, k, v = _flash_train_inputs(gen, s, hq, hkv, d)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    calls = 5
+    ms, turns = time_turns({
+        "lse": graphed(lambda: flash_kernel.flash_attention(q, k, v,
+                                                            lse=True), calls),
+        "no_lse": graphed(lambda: flash_kernel.flash_attention(q, k, v),
+                          calls),
+        "sdpa": graphed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), calls)}, 5)
+    ms = {n: t / calls for n, t in ms.items()}
+    plain_ms = time_ms(lambda: plain.flash_attention(q, k, v), 2, warmup=1)
+    nbytes, flops = attention_work(s, s, hq, hkv, d)
+    bms, by = bound(nbytes + s * hq * 4, flops)   # + the lse written
+    log(f"[train-kernels] time flash_attention (B=1 S={s} causal bf16, lse): "
+        f"{ms['lse']:.4f} ms (graph replay); without lse {ms['no_lse']:.4f} "
+        f"ms; SDPA forward {ms['sdpa']:.4f} ms, kernel/SDPA "
+        f"{ms['lse'] / ms['sdpa']:.3f}; plain {plain_ms:.4f} ms; bound "
+        f"{bms:.4f} ms ({by}), {bms / ms['lse']:.3f} of it")
+    rows.append(_shape_row("flash_attention",
+                           f"train llama3-8b B=1 S={s} causal, lse",
+                           ms["lse"], plain_ms, bms, by, ms["sdpa"]))
+    out, lse = flash_kernel.flash_attention(q, k, v, lse=True)
+    do = torch.randn_like(out)
+    pos = _positions(s)
+    bwd_ms = time_ms(lambda: plain.flash_bwd(q, k, v, *pos, out, lse, do,
+                                             True, 0, 512), 3, warmup=1)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(o, (qs, ks, vs), dot)
+    sdpa_ms = time_ms(sdpa_fwd_bwd, 10)
+    log(f"[train-kernels] time plain flash backward (B=1 S={s} causal, bf16 "
+        f"in, f32 math): {bwd_ms:.3f} ms; SDPA forward + backward "
+        f"{sdpa_ms:.3f} ms; plain backward / SDPA forward + backward "
+        f"{bwd_ms / sdpa_ms:.2f}")
+    # the ssd Function's backward at xLSTM's shape: autograd through the
+    # plain recompute (what SsdScan.backward runs), beside the kernel's
+    # forward
+    from repro_torch.models.blocks import ssd_chunked
+    b, t, h, dk, dv, _ = SSD_CASES[0]
+    q, k, v, la = ssd_inputs(gen, b, t, h, dk, dv, True)
+    dy = torch.randn(b, t, h, dv, generator=gen, device=DEVICE)
+    df = torch.randn(b, h, dk, dv, generator=gen, device=DEVICE)
+
+    def ssd_bwd():
+        ins = [x.detach().requires_grad_() for x in (q, k, v, la)]
+        torch.autograd.grad(ssd_chunked(*ins, 128), ins, (dy, df))
+    fwd_ms = time_ms(lambda: ssd_ops.ssd_scan(q, k, v, la), 20)
+    log(f"[train-kernels] time ssd_scan backward (plain recompute, B={b} "
+        f"T={t} H={h} dk={dk} dv={dv}): {time_ms(ssd_bwd, 5):.3f} ms; the "
+        f"kernel's forward {fwd_ms:.4f} ms (eager calls)")
+
+
+def phase_train(shape_rows):
+    """Phase 14: (a)-(e), each part's seconds logged. Returns the launch
+    counts of (a) and (c)'s training runs; appends flash's training-shape
+    row to ``shape_rows``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    counts = Counter()
+    for part, run in (
+            ("a", lambda: counts.update(phase_train_llama())),
+            ("b", check_train_against_cpu),
+            ("c", lambda: counts.update(phase_train_xlstm())),
+            ("d", lambda: check_train_kernels(gen)),
+            ("e", lambda: time_train_kernels(gen, shape_rows))):
+        t0 = time.perf_counter()
+        run()
+        _free()
+        log(f"[train] part ({part}) took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
     checked, shape_rows = phase_kernels()
-    # launches summed over every serving phase's runs (each resets the
-    # counts just before its engine runs and reads them just after)
+    # launches summed over every serving phase's runs and phase 14's two
+    # training runs (each resets the counts just before it runs and reads
+    # them just after)
     launches = Counter()
     for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
                   phase_moonshot, phase_jamba, phase_danube, phase_whisper,
                   phase_whisper_remap, phase_llava, phase_fleet_import,
                   phase_fleet_scale):
         launches.update(phase())
-    log(f"[launches] every serving phase: {dict(launches)}")
+    launches.update(phase_train(shape_rows))
+    log(f"[launches] every serving and training phase: {dict(launches)}")
     rows = []
     for name, (err, (ms, pms, bms, by, lib, _shape)) in checked.items():
         src, replaces = SOURCES[name]

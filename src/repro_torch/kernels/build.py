@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "rt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
     "rt_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_P],
-    "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
+    "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
     "rt_ssd_scan": [_P] * 9 + [_I] * 6 + [_P],
     "rt_flash_encode_ns": [_P] * 3 + [_I] * 7,
 }

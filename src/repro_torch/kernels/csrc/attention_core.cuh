@@ -99,13 +99,20 @@ __device__ __forceinline__ void store_tile(const Chunks<T>& r, float* ks,
   }
 }
 
+// No log-sum-exp output (attend_rows' default).
+struct NoLse {
+  __device__ float* operator()(int) const { return nullptr; }
+};
+
 // Rows must provide: const T* q_row(r), T* out(r) (nullptr: row is padding),
 // int qpos(r). Keys must provide: const T* k(kpos), const T* v(kpos), each
-// 16-byte aligned.
-template <typename T, typename Rows, typename Keys>
+// 16-byte aligned. lse_of(r) is row r's f32 slot for m + log(max(l, 1e-30)),
+// the log-sum-exp of its scaled scores, or nullptr.
+template <typename T, typename Rows, typename Keys, typename Lse = NoLse>
 __device__ void attend_rows(const Rows& rows_of, const Keys& keys, int rows,
                             int D, int kv_lo, int kv_hi, bool causal,
-                            int window, float scale) {
+                            int window, float scale,
+                            const Lse& lse_of = Lse{}) {
   static_assert(KT == 32, "the softmax step maps one key to one lane");
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float smem[];
@@ -208,6 +215,8 @@ __device__ void attend_rows(const Rows& rows_of, const Keys& keys, int rows,
     T* op = rows_of.out(r);
     if (op) op[d] = from_f<T>(os[i] / fmaxf(ls[r], 1e-30f));
   }
+  for (int r = tid; r < rows; r += nt)
+    if (float* lp = lse_of(r)) *lp = ms[r] + logf(fmaxf(ls[r], 1e-30f));
 }
 
 // Sets the kernel's dynamic shared memory limit once per size it needs.

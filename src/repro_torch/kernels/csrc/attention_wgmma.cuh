@@ -143,21 +143,22 @@ __device__ __forceinline__ void to_bf16_frags(const float (&sc)[KT / 2],
 }
 
 // The warpgroup's key tiles [it_lo, it_hi), tile it starting at key
-// kv_lo + it * KT: O (zeroed here) and l accumulate over them. Each tile's
-// stage is waited for before its S product and released once its P V
-// product is done.
+// kv_lo + it * KT: O (zeroed here), the running max m (log2 units of the
+// scaled scores) and l accumulate over them. Each tile's stage is waited
+// for before its S product and released once its P V product is done.
 template <int NC, int KT, int QROWS, typename Ring>
 __device__ __forceinline__ void attend_tiles(const bf16* qw, const Ring& ring,
                                              int it_lo, int it_hi, int kv_lo,
                                              const Mask& mask,
                                              float scale_log2,
                                              float (&o)[NC][32],
-                                             float (&l)[2]) {
+                                             float (&m)[2], float (&l)[2]) {
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int r = 0; r < 32; ++r) o[c][r] = 0.f;
-  float m[2] = {NEG, NEG}, alpha[2];
+  float alpha[2];
+  m[0] = m[1] = NEG;
   l[0] = l[1] = 0.f;
   if (it_lo >= it_hi) return;
   float sc[KT / 2];
@@ -226,6 +227,25 @@ __device__ __forceinline__ void store_rows(const float (&o)[NC][32],
               __floats2bfloat162_rn(o[c][4 * g + 2 * h] * inv,
                                     o[c][4 * g + 2 * h + 1] * inv);
       }
+  }
+}
+
+// Each row's log-sum-exp of its scaled scores, in the natural log: m is in
+// log2 units, so lse = (m + log2 l) ln 2 (l summed across the quad first).
+// row_lse(h) is the f32 slot of fragment row h (row_a + 8 h), or nullptr for
+// a row that is not written; the quad's first thread writes it.
+template <typename RowLse>
+__device__ __forceinline__ void store_lse(const float (&m)[2],
+                                          const float (&l)[2], int quad,
+                                          const RowLse& row_lse) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    float* slot = row_lse(h);
+    if (slot && quad == 0)
+      *slot = (m[h] + log2f(fmaxf(lt, 1e-30f))) * 0.6931471805599453f;
   }
 }
 

@@ -1,5 +1,9 @@
 // Forward flash attention (GQA, causal or bidirectional, optional sliding
-// window), for Hopper.
+// window), for Hopper. Optionally it also writes each query row's
+// log-sum-exp of its scaled scores (lse [B, Sq, Hq] f32, natural log), which
+// the backward pass (attention_ops.FlashAttention, plain PyTorch as the
+// reference's jnp custom VJP is) recomputes the probabilities from; serving
+// passes no lse buffer and no lse is written.
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_kernel` in
 // src/repro/kernels/flash_attention/kernel.py. Query i and key j sit at
@@ -63,6 +67,7 @@ constexpr int THREADS = 256;
 struct FlashRows {   // query positions [r0, r0 + ROWS) of head hq, batch b
   const float* q;    // [B, Sq, Hq, D]
   float* o;
+  float* lse_;       // [B, Sq, Hq] or nullptr
   int b, hq, Sq, Hq, D, r0;
   __device__ bool live(int r) const { return r0 + r < Sq; }
   __device__ size_t off(int r) const {
@@ -73,6 +78,10 @@ struct FlashRows {   // query positions [r0, r0 + ROWS) of head hq, batch b
   }
   __device__ float* out(int r) const { return live(r) ? o + off(r) : nullptr; }
   __device__ int qpos(int r) const { return r0 + r; }
+  __device__ float* operator()(int r) const {   // row r's lse slot
+    return lse_ && live(r) ? lse_ + ((size_t)b * Sq + r0 + r) * Hq + hq
+                           : nullptr;
+  }
 };
 
 struct DenseKeys {   // k/v [B, Sk, Hkv, D], KV head h of batch b
@@ -89,8 +98,9 @@ struct DenseKeys {   // k/v [B, Sk, Hkv, D], KV head h of batch b
 __global__ void flash_f32(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ out,
-                          int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                          int window, float scale) {
+                          float* __restrict__ lse, int Sq, int Sk, int Hq,
+                          int Hkv, int D, int causal, int window,
+                          float scale) {
   const int tile = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int r0 = tile * ROWS;
@@ -99,10 +109,10 @@ __global__ void flash_f32(const float* __restrict__ q,
   if (causal) kv_hi = min(Sk, q_last + 1);
   int kv_lo = 0;
   if (window > 0) kv_lo = max(0, r0 - window + 1) / rt::KT * rt::KT;
-  FlashRows rows{q, out, b, hq, Sq, Hq, D, r0};
+  FlashRows rows{q, out, lse, b, hq, Sq, Hq, D, r0};
   DenseKeys keys{k, v, b, hq / G, Sk, Hkv, D};
   rt::attend_rows<float>(rows, keys, ROWS, D, kv_lo, kv_hi, causal != 0,
-                         window, scale);
+                         window, scale, rows);
 }
 
 // ------------------------------------------------- bf16: wgmma, TMA ring
@@ -169,8 +179,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-            int Sq, int Sk, int Hq, int Hkv, int D, int causal, int window,
-            float scale_log2) {
+            float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int D,
+            int causal, int window, float scale_log2) {
   using TL = Tiles<NC>;
   constexpr int KT = TL::KT, STAGES = TL::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -236,9 +246,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     ring.wait(it);
     ring.release(it);
   }
-  float o[NC][32], l[2];
+  float o[NC][32], m[2], l[2];
   aw::attend_tiles<NC, KT, BM>(qs + 64 * cw * 64, ring, it_lo, it_hi, kv_lo,
-                               mask, scale_log2, o, l);
+                               mask, scale_log2, o, m, l);
   for (int it = it_hi; it < n_tiles; ++it) {   // tiles past the diagonal
     ring.wait(it);
     ring.release(it);
@@ -248,6 +258,11 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     const int i = row_a + 8 * h;
     return i < Sq ? out + (((size_t)b * Sq + i) * Hq + hq) * D : nullptr;
   });
+  if (lse)   // the same for every thread of the block
+    aw::store_lse(m, l, quad, [&](int h) -> float* {
+      const int i = row_a + 8 * h;
+      return i < Sq ? lse + ((size_t)b * Sq + i) * Hq + hq : nullptr;
+    });
 }
 
 // The three tensor maps of one call (Q with BM-row boxes, K and V with
@@ -261,8 +276,9 @@ bool encode_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
 
 template <int NC>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                         int D, int causal, int window, cudaStream_t stream) {
+                         void* out, float* lse, int B, int Sq, int Sk, int Hq,
+                         int Hkv, int D, int causal, int window,
+                         cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
   CUtensorMap m[3];
   if (!encode_maps(m, q, k, v, B, Sq, Sk, Hq, Hkv, D, Tiles<NC>::KT))
@@ -271,48 +287,51 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return e;
   const dim3 grid(Hq, (Sq + BM - 1) / BM, B);
   flash_wgmma<NC><<<grid, BLOCK_THREADS, Tiles<NC>::SMEM, stream>>>(
-      m[0], m[1], m[2], (bf16*)out, Sq, Sk, Hq, Hkv, D, causal, window,
+      m[0], m[1], m[2], (bf16*)out, lse, Sq, Sk, Hq, Hkv, D, causal, window,
       LOG2E / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int B, int Sq, int Sk, int Hq, int Hkv, int D,
-                       int causal, int window, cudaStream_t stream) {
+                       float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                       int D, int causal, int window, cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
   const size_t smem = rt::smem_floats(ROWS, D) * sizeof(float);
   cudaError_t e = rt::allow_smem(flash_f32, smem, &allowed);
   if (e != cudaSuccess) return e;
   const int tiles = (Sq + ROWS - 1) / ROWS;
   flash_f32<<<dim3(tiles, Hq, B), THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
-      Hq, Hkv, D, causal, window, 1.0f / sqrtf((float)D));
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, Sq,
+      Sk, Hq, Hkv, D, causal, window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. lse: [B, Sq, Hq] f32, or null for none.
+// Returns a cudaError_t (0 = launched).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* out, int B, int Sq, int Sk, int Hq,
-                                  int Hkv, int D, int causal, int window,
-                                  int dtype, void* stream) {
+                                  void* out, void* lse, int B, int Sq, int Sk,
+                                  int Hq, int Hkv, int D, int causal,
+                                  int window, int dtype, void* stream) {
   auto s = (cudaStream_t)stream;
+  auto l = (float*)lse;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, window, s);
+    return launch_f32(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, D, causal, window,
+                      s);
   if (dtype != 1 || D < 1 || D > 256) return (int)cudaErrorInvalidValue;
   switch ((D + 63) / 64) {
     case 1:
-      return launch_wgmma<1>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
+      return launch_wgmma<1>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, D, causal,
                              window, s);
     case 2:
-      return launch_wgmma<2>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
+      return launch_wgmma<2>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, D, causal,
                              window, s);
     case 3:
-      return launch_wgmma<3>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
+      return launch_wgmma<3>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, D, causal,
                              window, s);
     default:
-      return launch_wgmma<4>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
+      return launch_wgmma<4>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, D, causal,
                              window, s);
   }
 }

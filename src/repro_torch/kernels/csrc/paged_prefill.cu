@@ -290,9 +290,9 @@ paged_wgmma(const __grid_constant__ CUtensorMap tk,
   const aw::Mask mask{kv_limit, 1,    window,
                       q_first,  q0 + (r0 + BM - 1) / G,
                       quad,     q0 + ra / G, q0 + (ra + 8) / G};
-  float o[NC][32], l[2];
+  float o[NC][32], m[2], l[2];
   aw::attend_tiles<NC, KT, BM>(qs, ring, 0, n_tiles, kv_lo, mask, scale_log2,
-                               o, l);
+                               o, m, l);
   aw::store_rows<NC>(o, l, quad, D, [&](int hh) -> bf16* {
     const int rg = ra + 8 * hh;
     return rg < rows ? out + (((size_t)b * Sq + rg / G) * Hq + h * G +

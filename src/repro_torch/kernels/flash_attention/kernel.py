@@ -14,9 +14,12 @@ from repro_torch.kernels.paged_attention.kernel import (
 )
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """q [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    lse: bool = False):
+    """q [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D] -> out [B, Sq, Hq, D]; with
+    ``lse``, (out, lse [B, Sq, Hq] f32): each row's log-sum-exp of its
+    scaled scores, which the backward pass needs (serving asks for none,
+    and the kernel then writes none)."""
     name = "flash_attention"
     _check_cuda(name, q=q, k=k, v=v)
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -29,14 +32,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"{name}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
     _check_head_dim(name, d, q.dtype, q, k, v)
     out = torch.empty_like(q)
+    lse_out = torch.empty((b, sq, hq), dtype=torch.float32,
+                          device=q.device) if lse else None
     err = build.load().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse_out is None else lse_out.data_ptr(),
         b, sq, sk, hq, hkv, d, int(bool(causal)), int(window),
         _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     flash_attention.launches += 1
-    return out
+    return out if lse_out is None else (out, lse_out)
 
 
 flash_attention.launches = 0

@@ -1,0 +1,116 @@
+"""Training launcher (``repro.launch.train`` on the port).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+      --scaled --steps 100 --batch 4 --seq 64 --ckpt-dir /tmp/ckpt
+
+Runs on the card (``--device cuda``, the default; the flash and ssd_scan
+kernels run every attention and SSD forward) or, with ``--device cpu``, on
+the plain PyTorch versions. ``--scaled`` takes the reduced config of the
+same family (``--layers`` sets its depth); without it the published
+config runs, cut to ``--layers`` layers when given. Only ``--mesh host``
+(one device) is ported: the production meshes wait for ROADMAP queue 1
+item 9. Fault tolerance: checkpoints every ``--ckpt-every`` steps;
+rerunning with the same ``--ckpt-dir`` resumes from the latest checkpoint
+and replays identical data (the pipeline is keyed by step).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import ARCHS, get_arch, scaled_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed.fault_tolerance import StepWatchdog, TrainRunner
+from repro_torch.models import build_model
+from repro_torch.training import (
+    OptimizerConfig, batch_for_step, checkpoint, make_optimizer,
+    make_train_step,
+)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b", choices=sorted(ARCHS))
+    ap.add_argument("--scaled", action="store_true",
+                    help="reduced config of the same family")
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adafactor"])
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "single_pod", "multi_pod"])
+    ap.add_argument("--remat", default="none",
+                    choices=["none", "full", "dots_saveable"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fixed-batch", action="store_true",
+                    help="overfit one batch (loss must drop; smoke check)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (the plain versions)")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "host":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the port trains on one device; meshes "
+            "wait for ROADMAP queue 1 item 9")
+    cfg = get_arch(args.arch)
+    if args.scaled:
+        over = {"num_layers": args.layers} if args.layers else {}
+        cfg = scaled_config(cfg, **over)
+    elif args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    model = build_model(cfg)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    opt = make_optimizer(OptimizerConfig(
+        name=args.optimizer, learning_rate=args.lr, warmup_steps=10))
+
+    dev = args.device
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
+                        dev)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt, remat_policy=args.remat,
+                              microbatches=args.microbatches)
+
+    def batch_fn(step):
+        s = 0 if args.fixed_batch else step
+        return batch_for_step(model, shape, args.seed, s, device=dev)
+
+    if args.ckpt_dir:
+        runner = TrainRunner(step_fn, batch_fn, args.ckpt_dir,
+                             ckpt_every=args.ckpt_every,
+                             watchdog=StepWatchdog())
+        start = checkpoint.latest_step(args.ckpt_dir) or 0
+        if start:
+            print(f"resuming from step {start}")
+            params, opt_state = runner.resume(params, opt_state,
+                                              num_steps=args.steps)
+        else:
+            params, opt_state = runner.run(params, opt_state,
+                                           num_steps=args.steps)
+        for m in runner.metrics_log[-5:]:
+            print(m)
+        if runner.watchdog.events:
+            print(f"straggler events: {len(runner.watchdog.events)}")
+    else:
+        t0 = time.time()
+        for step in range(args.steps):
+            params, opt_state, metrics = step_fn(
+                params, opt_state, batch_fn(step))
+            if step % max(args.steps // 10, 1) == 0 or \
+                    step == args.steps - 1:
+                print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"({time.time() - t0:.1f}s)")
+    return params
+
+
+if __name__ == "__main__":
+    main()

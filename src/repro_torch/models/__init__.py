@@ -2,7 +2,8 @@
 kernels' plain versions (``models.attention_ops``) import without pulling in
 the model stack that calls the kernels."""
 _EXPORTS = {"Model": "registry", "build_model": "registry",
-            "params_from_jax": "registry", "LM": "lm", "EncDec": "encdec"}
+            "params_from_jax": "registry", "opt_state_from_jax": "registry",
+            "WHISPER_DECODER_LEN": "registry", "LM": "lm", "EncDec": "encdec"}
 
 
 def __getattr__(name):

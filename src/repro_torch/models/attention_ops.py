@@ -14,6 +14,13 @@ kernels in ``repro_torch.kernels`` are held against. They compute what
 Scores and the softmax run in f32 whatever the input type (the JAX ops
 ask for f32 products with ``preferred_element_type``); q is scaled in its
 own dtype first, as the JAX ops do.
+
+``FlashAttention`` is the gradient of full attention (the JAX op's custom
+VJP): its forward is a function returning the output and each row's
+log-sum-exp (the plain chunked softmax here, the CUDA kernel in
+``kernels.flash_attention``), and its backward recomputes the scores chunk
+by chunk in f32 from that log-sum-exp, so no [Sq, Sk] probabilities are
+kept for it.
 """
 from __future__ import annotations
 
@@ -75,25 +82,123 @@ def _arange_pos(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def flash_attention(q, k, v, q_pos: Optional[torch.Tensor] = None,
-                    kv_pos: Optional[torch.Tensor] = None,
-                    kv_valid: Optional[torch.Tensor] = None, *,
-                    causal: bool = True, window: int = 0,
-                    chunk: int = 512) -> torch.Tensor:
-    """Full (prefill) attention. q [B,Sq,Hq,D] -> [B,Sq,Hq,D]. Forward
-    only: the custom VJP of the JAX op waits for the training slice."""
+def needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def flash_fwd(q, k, v, q_pos, kv_pos, kv_valid, causal: bool, window: int,
+              chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward: (out [B, Sq, Hq, D] in q's dtype, lse [B, Sq, Hq]
+    f32 = m + log(max(l, 1e-30)) of the scaled scores)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = _group_q(q, hkv) * (d ** -0.5)
+    o, m, l = _flash_core(qg, k, v, q_pos, kv_pos, kv_valid,
+                          causal=causal, window=window, chunk=chunk)
+    out = _normalize(o, m, l, q.dtype).reshape(b, sq, hq, d)
+    return out, (m + torch.log(l.clamp_min(1e-30))).reshape(b, sq, hq)
+
+
+def flash_bwd(q, k, v, q_pos, kv_pos, kv_valid, out, lse, do, causal: bool,
+              window: int, chunk: int):
+    """(dq, dk, dv) of full attention, each in its input's dtype: the JAX
+    op's ``_flash_bwd``. Per key chunk, in f32: p = exp(s - lse) under the
+    forward's masks, dv += p^T do, ds = p (do v^T - delta) with delta =
+    rowsum(out * do), dq += ds k, dk += ds^T q; dq is scaled at the end.
+    q is scaled in its own dtype first, as in the forward."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    qg = (_group_q(q, hkv) * scale).float()                # [B,Sq,Hkv,G,D]
+    dog = _group_q(do, hkv).float()
+    delta = (_group_q(out, hkv).float() * dog).sum(-1)     # [B,Sq,Hkv,G]
+    lse = lse.reshape(b, sq, hkv, g)[..., None]
+    ck = min(chunk, sk)
+    while sk % ck:
+        ck -= 1
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for c0 in range(0, sk, ck):
+        k_j = k[:, c0:c0 + ck].float()
+        v_j = v[:, c0:c0 + ck].float()
+        p_j = kv_pos[:, c0:c0 + ck]
+        mask = kv_valid[:, c0:c0 + ck][:, None, :]        # [B, 1, chunk]
+        if causal:
+            mask = mask & (p_j[:, None, :] <= q_pos[:, :, None])
+        if window > 0:
+            mask = mask & (q_pos[:, :, None] - p_j[:, None, :] < window)
+        s = torch.einsum("bqhgd,bchd->bqhgc", qg, k_j)
+        p = s.masked_fill_(~mask[:, :, None, None, :], NEG_INF) \
+            .sub_(lse).exp_()
+        dvs.append(torch.einsum("bqhgc,bqhgd->bchd", p, dog))
+        ds = torch.einsum("bqhgd,bchd->bqhgc", dog, v_j) \
+            .sub_(delta[..., None]).mul_(p)
+        del p
+        dq += torch.einsum("bqhgc,bchd->bqhgd", ds, k_j)
+        dks.append(torch.einsum("bqhgc,bqhgd->bchd", ds, qg))
+    dq = (dq * scale).reshape(b, sq, hq, d).to(q.dtype)
+    return (dq, torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Full attention with the JAX op's custom VJP. ``fwd(q, k, v, q_pos,
+    kv_pos, kv_valid, causal, window, chunk)`` returns (out, lse):
+    ``flash_fwd`` on the CPU, the CUDA kernel on the card. The backward is
+    ``flash_bwd`` on either."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, kv_valid, causal, window,
+                chunk, fwd):
+        out, lse = fwd(q, k, v, q_pos, kv_pos, kv_valid, causal, window,
+                       chunk)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, kv_valid, out, lse)
+        ctx.opts = (causal, window, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = flash_bwd(*ctx.saved_tensors, do, *ctx.opts)
+        return (dq, dk, dv) + (None,) * 7
+
+
+def _positions(q, k, q_pos, kv_pos, kv_valid):
+    """The given positions and validity, or arange and every key valid."""
+    b, sq = q.shape[:2]
+    sk = k.shape[1]
     if q_pos is None:
         q_pos = _arange_pos(b, sq, q.device)
     if kv_pos is None:
         kv_pos = _arange_pos(b, sk, q.device)
     if kv_valid is None:
         kv_valid = torch.ones((b, sk), dtype=torch.bool, device=q.device)
-    qg = _group_q(q, hkv) * (d ** -0.5)
-    o, m, l = _flash_core(qg, k, v, q_pos, kv_pos, kv_valid,
-                          causal=causal, window=window, chunk=chunk)
-    return _normalize(o, m, l, q.dtype).reshape(b, sq, hq, d)
+    return q_pos, kv_pos, kv_valid
+
+
+def flash_attention_fn(fwd, q, k, v, q_pos=None, kv_pos=None, kv_valid=None,
+                       *, causal: bool = True, window: int = 0,
+                       chunk: int = 512) -> torch.Tensor:
+    """``FlashAttention`` with ``fwd`` as its forward."""
+    return FlashAttention.apply(
+        q, k, v, *_positions(q, k, q_pos, kv_pos, kv_valid), causal, window,
+        chunk, fwd)
+
+
+def flash_attention(q, k, v, q_pos: Optional[torch.Tensor] = None,
+                    kv_pos: Optional[torch.Tensor] = None,
+                    kv_valid: Optional[torch.Tensor] = None, *,
+                    causal: bool = True, window: int = 0,
+                    chunk: int = 512) -> torch.Tensor:
+    """Full (train/prefill) attention. q [B,Sq,Hq,D] -> [B,Sq,Hq,D].
+    Differentiable through ``FlashAttention`` when an input needs a
+    gradient; otherwise the forward alone."""
+    if needs_grad(q, k, v):
+        return flash_attention_fn(flash_fwd, q, k, v, q_pos, kv_pos,
+                                  kv_valid, causal=causal, window=window,
+                                  chunk=chunk)
+    return flash_fwd(q, k, v, *_positions(q, k, q_pos, kv_pos, kv_valid),
+                     causal, window, chunk)[0]
 
 
 def decode_attention(q, k_cache, v_cache, q_pos, kv_pos, kv_valid, *,

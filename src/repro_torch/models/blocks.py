@@ -24,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.attention_ops import decode_attention
-from repro_torch.models.common import Spec, dtype_of
+from repro_torch.models.common import Spec, dtype_of, remat
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +374,11 @@ def ssd_chunked(
         # intra-chunk: scores[t,s] = q_t.k_s * exp(cum_t - cum_s), t >= s
         scores = _einsum("blhk,bmhk->bhlm", qi, ki)
         decay = cumi[:, :, None, :] - cumi[:, None, :, :]     # [B,l,m,H]
-        decay = decay.movedim(-1, 1)                          # [B,H,l,m]
+        # the pairs t < s are masked before the exp: their exp(cum_t -
+        # cum_s) overflows to inf once a chunk decays by more than ~88.7,
+        # and the JAX block's where() then turns the backward's 0 * inf into
+        # NaN (ROADMAP queue 3); the forward's values are the same
+        decay = torch.where(mask, decay.movedim(-1, 1), -torch.inf)
         scores = torch.where(mask, scores * torch.exp(decay), 0.0)
         y_intra = _einsum("bhlm,bmhv->blhv", scores, vi)
         # state update: S = exp(total) S + sum_s exp(total - cum_s) k_s v_s^T
@@ -577,7 +581,7 @@ class MLSTM:
 # ---------------------------------------------------------------------------
 # sLSTM (scalar memory, per-head block-diagonal recurrence). Strictly
 # sequential: a plain loop over time in f32 (no Pallas kernel on the TPU
-# either; the JAX model scans it).
+# either; the JAX model scans it, checkpointed per chunk of steps).
 # ---------------------------------------------------------------------------
 
 class SLSTM:
@@ -616,19 +620,38 @@ class SLSTM:
         h = o * c / torch.clamp(n.abs(), min=1.0)
         return {"c": c, "n": n, "h": h}
 
+    TIME_CHUNK = 64
+
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
+        """The time loop; under autograd each chunk of ``TIME_CHUNK`` steps
+        (the largest divisor of T not above it) is checkpointed, as the JAX
+        block's ``jax.checkpoint`` chunk body is: the backward keeps only
+        the (c, n, h) state between chunks and recomputes a chunk's steps."""
         b, t, _ = x.shape
         wx = _einsum("btd,dghk->btghk", x, p["w"])     # [b,t,4,h,hd]
         zeros = torch.zeros((b, cfg.num_heads, cfg.resolved_head_dim),
                             dtype=torch.float32, device=x.device)
-        state = {"c": zeros, "n": zeros, "h": zeros}
+        state = (zeros, zeros, zeros)
+
+        def steps(wxc, c, n, h):
+            st = {"c": c, "n": n, "h": h}
+            hs = []
+            for i in range(wxc.shape[1]):
+                st = self._cell(p, wxc[:, i], st)
+                hs.append(st["h"])
+            return st["c"], st["n"], st["h"], torch.stack(hs, dim=1)
+
+        ck = self.TIME_CHUNK
+        while t % ck:
+            ck -= 1
+        run = remat(steps, "full")
         hs = []
-        for i in range(t):
-            state = self._cell(p, wx[:, i], state)
-            hs.append(state["h"])
-        hs = torch.stack(hs, dim=1).to(x.dtype)        # [b,t,h,hd]
+        for c0 in range(0, t, ck):
+            *state, h_c = run(wx[:, c0:c0 + ck], *state)
+            hs.append(h_c)
+        hs = torch.cat(hs, dim=1).to(x.dtype)          # [b,t,h,hd]
         out = _einsum("bthk,hkd->btd", hs, p["wo"]).to(x.dtype)
-        return out, state
+        return out, dict(zip(("c", "n", "h"), state))
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
         wx = _einsum("bd,dghk->bghk", x, p["w"])

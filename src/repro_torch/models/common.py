@@ -8,11 +8,15 @@ plain nested dicts/tuples of tensors in the JAX layout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 _DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -106,3 +110,45 @@ def stack_specs(spec_tree, n: int, stack_logical: str = "stack"):
     """Prepend a stacked-layer dim of size n to every Spec in a tree."""
     return tree_map(lambda s: Spec((n,) + s.shape, (stack_logical,) + s.logical,
                                    s.dtype, s.init, s.fan_in), spec_tree)
+
+
+# the products "dots_saveable" keeps: the outputs of every matrix product
+# (einsum and matmul reach these), as ``jax.checkpoint_policies.
+# checkpoint_dots`` keeps every dot_general's
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, policy: Optional[str]) -> Callable:
+    """``fn`` under a rematerialisation policy, as ``jax.checkpoint`` wraps
+    the JAX model's scan bodies: None or "none" keeps every activation for
+    the backward pass; "full" keeps only ``fn``'s inputs and recomputes the
+    rest; "dots_saveable" also keeps the matrix products' outputs. A call
+    whose tensor arguments need no gradient (inference) runs ``fn`` as it
+    is. A custom autograd Function inside ``fn`` runs its forward again in
+    the recompute (the flash and SSD kernels launch again there)."""
+    if policy in (None, "none"):
+        return fn
+    if policy == "full":
+        ctx_fn = None
+    elif policy == "dots_saveable":
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+    else:
+        raise ValueError(f"unknown remat policy {policy!r} (none, full, "
+                         "dots_saveable)")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled() or not any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in tree_leaves(args)):
+            return fn(*args)
+        if ctx_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx_fn)
+    return wrapped

@@ -12,8 +12,9 @@ decode, so a remapped decoder repeat streams its parameters while its
 cross cache stays in the decode state.
 
 The dense decode state is updated IN PLACE (the self-attention caches take
-the new token's row where they lie), as in ``LM.decode_step``. Training
-(``loss``) waits for the training slice (ROADMAP queue 1).
+the new token's row where they lie), as in ``LM.decode_step``. ``loss`` is
+the training objective: the decoder's mean masked cross-entropy over its
+full logits, as in the reference.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import Attention, SwiGLU, _einsum, rms_norm
 from repro_torch.models.common import (
-    Spec, dtype_of, stack_specs, tree_init, tree_map,
+    Spec, dtype_of, remat, stack_specs, tree_init, tree_map,
 )
 from repro_torch.models.lm import _index, _index_fetch
 
@@ -110,18 +111,20 @@ class EncDec:
         x = params["embed"][tokens.long()].to(dtype_of(self.cfg))
         return x * (self.cfg.d_model ** 0.5)
 
-    def dec_seq(self, params, x, enc_out, collect_cache: bool = False):
+    def dec_seq(self, params, x, enc_out, remat_policy=None,
+                collect_cache: bool = False):
         """Decoder over x [B, S, D] against enc_out -> (x, caches | None):
         caches {"self", "cross"}, each {k, v} stacked over the repeats
-        [R, B, S or S_enc, Hkv, hd], as the JAX scan returns them."""
+        [R, B, S or S_enc, Hkv, hd], as the JAX scan returns them.
+        ``remat_policy`` applies to each decoder layer (``common.remat``),
+        as the JAX decoder checkpoints its scan body."""
         cfg = self.cfg
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         ctx = {"positions": positions, "enc_out": enc_out}
-        per_layer = []
-        for r in range(self.repeats):
-            p = _index(params["blocks"][0], r)
+
+        def body(x, p):
             h, self_cache = _SELF.fwd_seq(
                 p["self"], rms_norm(x, p["norm1"], cfg.norm_eps), ctx, cfg)
             x = x + h
@@ -129,11 +132,33 @@ class EncDec:
                 p["cross"], rms_norm(x, p["norm_x"], cfg.norm_eps), ctx, cfg)
             x = x + h
             x = x + _FFN(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+            return x, {"self": self_cache, "cross": cross_cache}
+
+        step = remat(body, remat_policy)
+        per_layer = []
+        for r in range(self.repeats):
+            x, cache = step(x, _index(params["blocks"][0], r))
             if collect_cache:
-                per_layer.append({"self": self_cache, "cross": cross_cache})
+                per_layer.append(cache)
         caches = tree_map(lambda *xs: torch.stack(xs), *per_layer) \
             if collect_cache else None
         return x, caches
+
+    def loss(self, params, frames, tokens, targets, mask,
+             remat_policy="dots_saveable"):
+        """Mean masked cross-entropy of the decoder's next-token logits
+        (full [B, S, V] logits, as in the reference) after encoding
+        ``frames``; a scalar. The reference's loss always checkpoints the
+        decoder with dots_saveable; here the caller's policy applies (the
+        value is the same)."""
+        enc_out = self.encode(params, frames)
+        x = self.embed(params, tokens)
+        x, _ = self.dec_seq(params, x, enc_out, remat_policy=remat_policy)
+        h = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        logits = _einsum("bsd,dv->bsv", h, params["out"])
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
 
     def logits_last(self, params, x_last):
         """x_last [B, D] -> [B, V] (f32)."""

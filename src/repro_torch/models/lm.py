@@ -20,10 +20,14 @@ the state dict, as in the JAX package.
 A VLM (llava) is this LM with a prefix: precomputed patch embeddings
 (``prefix_embeds`` [B, P, D], the stub of its vision frontend) go ahead of
 the scaled token embeddings. Enc-dec (whisper) is ``models.encdec``.
+
+Training runs ``fwd_seq`` under a remat policy and ``loss``, a chunked
+cross-entropy (``Model.train_loss`` puts them together).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -36,7 +40,7 @@ from repro_torch.models.blocks import (
     MLSTM, SLSTM, Attention, Mamba, MoE, SwiGLU, _einsum, rms_norm, rope,
 )
 from repro_torch.models.common import (
-    Spec, dtype_of, stack_specs, tree_init, tree_map,
+    Spec, dtype_of, remat, stack_specs, tree_init, tree_map,
 )
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +114,15 @@ def _index(tree, r):
     return tree[r]
 
 
+def _ce_chunk(h, w, targets, mask):
+    """(sum of the masked NLL, sum of the mask) of one chunk: h [B, C, D]
+    against w [D, V], logits in f32."""
+    logits = _einsum("bcd,dv->bcv", h, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
 class LM:
     """Decoder-only LM; methods are functions of (params, state, inputs)."""
 
@@ -178,27 +191,71 @@ class LM:
         aux.append(a)
         return x + y
 
+    # ------------------------------------------------------------- training
+    def loss(self, params, x, targets, mask, chunk: int = 512):
+        """Mean masked next-token cross-entropy of x [B, S, D] against
+        targets [B, S] (mask [B, S] f32), a scalar, as the JAX loss returns.
+        Chunked over the sequence, each chunk checkpointed when autograd is
+        on, so [B, S, V] logits never exist: only one chunk's [B, chunk, V]
+        at a time, forward and backward."""
+        cfg = self.cfg
+        s = x.shape[1]
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        w = self._out_w(params)
+        chunk = min(chunk, s)
+        while s % chunk:
+            chunk -= 1
+        ce = remat(_ce_chunk, "full")
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, chunk):
+            sl = slice(c0, c0 + chunk)
+            nll, m = ce(h[:, sl], w, targets[:, sl], mask[:, sl])
+            tot, cnt = tot + nll, cnt + m
+        return tot / cnt.clamp_min(1.0)
+
     # ------------------------------------------------------------ seq forward
-    def fwd_seq(self, params, x, ctx, collect_cache: bool = False):
+    def fwd_seq(self, params, x, ctx, remat_policy=None,
+                collect_cache: bool = False):
         """x [B,S,D] -> (x, aux_loss, caches | None); caches is a tuple with
         one cache tree per pattern position, its leaves stacked over the
         repeats ([R, ...]), as in the JAX LM: {"k", "v"} [R, B, S, Hkv, hd]
         for attention, the final recurrent state for the recurrent mixers.
-        aux_loss sums the MoE layers' load-balance losses."""
+        aux_loss sums the MoE layers' load-balance losses.
+
+        ``remat_policy`` (None, "none", "full" or "dots_saveable"; see
+        ``common.remat``) applies to each repeat of the block pattern, as
+        the JAX LM checkpoints its scan body; with a policy, a pattern of
+        more than one layer also checkpoints each layer inside the repeat
+        (the JAX LM's inner remat), so the backward of a repeat holds one
+        layer's activations at a time."""
         cfg = self.cfg
         fetch = _index_fetch(params)
+        inner = remat_policy not in (None, "none") and len(self.pattern) > 1
+
+        def layer(ld, p, x, aux):
+            h, cache = MIXERS[ld.mixer].fwd_seq(
+                p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), ctx, cfg)
+            a = []
+            x = self._ffn(ld, p, x + h, a)
+            return x, (aux + a[0] if a else aux), cache
+
+        def body(x, aux, layer_params):
+            caches = []
+            for ld, p in zip(self.pattern, layer_params):
+                fn = functools.partial(layer, ld)
+                x, aux, cache = (remat(fn, "full") if inner else fn)(
+                    p, x, aux)
+                caches.append(cache)
+            return x, aux, caches
+
+        step = remat(body, remat_policy)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         per_pos: List[list] = [[] for _ in self.pattern]
-        auxes: List[torch.Tensor] = []
         for r in range(self.repeats):
-            for i, (ld, p) in enumerate(zip(self.pattern, fetch(r))):
-                h, cache = MIXERS[ld.mixer].fwd_seq(
-                    p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), ctx,
-                    cfg)
-                x = self._ffn(ld, p, x + h, auxes)
-                if collect_cache:
+            x, aux, caches = step(x, aux, fetch(r))
+            if collect_cache:
+                for i, cache in enumerate(caches):
                     per_pos[i].append(cache)
-        aux = sum(auxes, torch.zeros((), dtype=torch.float32,
-                                     device=x.device))
         caches = tuple(
             tree_map(lambda *xs: torch.stack(xs), *c) for c in per_pos) \
             if collect_cache else None

@@ -12,6 +12,8 @@ from repro_torch.models.common import tree_map
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
+WHISPER_DECODER_LEN = 448   # decoder-side target length for train/prefill
+
 
 class Model:
     """Dispatches to LM or EncDec, as the JAX facade does."""
@@ -29,6 +31,25 @@ class Model:
     @property
     def repeats(self) -> int:
         return self.impl.repeats
+
+    # ------------------------------------------------------------------ train
+    def train_loss(self, params, batch, remat_policy: str = "dots_saveable"):
+        """The training objective of one batch (``training.batch_for_step``'s
+        keys): the mean masked next-token cross-entropy plus 0.01 x the MoE
+        load-balance loss, a scalar, as the JAX facade's ``train_loss``."""
+        if self.cfg.is_encoder_decoder:
+            return self.impl.loss(params, batch["frames"], batch["tokens"],
+                                  batch["targets"], batch["mask"],
+                                  remat_policy=remat_policy)
+        x = self.impl.embed(params, batch["tokens"],
+                            batch.get("patch_embeds"))
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        x, aux, _ = self.impl.fwd_seq(params, x, {"positions": positions},
+                                      remat_policy=remat_policy)
+        loss = self.impl.loss(params, x, batch["targets"], batch["mask"])
+        return loss + 0.01 * aux
 
     # ---------------------------------------------------------------- serving
     def prefill(self, params, batch, max_context: int):
@@ -89,3 +110,13 @@ def params_from_jax(tree: Any, device="cuda") -> Any:
     e.g. after ``jax.tree.map(np.asarray, params)``) as the port's params:
     leaf by leaf, same structure, same layout, same dtype, on ``device``."""
     return tree_map(lambda a: _to_torch(a, device), tree)
+
+
+def opt_state_from_jax(state: Any, device="cuda") -> Any:
+    """A JAX optimizer state (AdamW's {"mu", "nu", "step"}, Adafactor's
+    {"v", "step"}, as numpy leaves) as the port's optimizer state: the
+    moment trees leaf by leaf as ``params_from_jax`` converts params, the
+    step an int32 scalar tensor."""
+    if "step" not in state:
+        raise ValueError(f"not an optimizer state: keys {sorted(state)}")
+    return params_from_jax(state, device)

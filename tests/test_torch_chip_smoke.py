@@ -409,3 +409,83 @@ def test_kernel_name_reads_every_template_argument(mangled, name):
     ("ssd_states", "ssd_states")])
 def test_profiler_kernel_keys_lose_namespace_and_arguments(key, name):
     assert chip_smoke._kernel_key(key) == name
+
+
+# ------------------------------------------------------------ phase 14
+@pytest.fixture
+def train_on_cpu(monkeypatch):
+    for name, value in (("DEVICE", "cpu"), ("TRAIN_SEQ", 48),
+                        ("CHECK_SEQ", 32), ("XLSTM_TRAIN_SEQ", 32)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    return dataclasses.replace(scaled_config(ARCHS["llama3-8b"],
+                                             num_layers=2), dtype="bfloat16")
+
+
+def test_train_phase_runs(train_on_cpu, capsys):
+    counts = chip_smoke.phase_train_llama(train_on_cpu)
+    chip_smoke.check_train_against_cpu(train_on_cpu)
+    out = capsys.readouterr().out
+    n = chip_smoke.TRAIN_STEPS + chip_smoke.FIXED_STEPS
+    assert f"[train] step {n - 1}:" in out and "(profiled)" in out
+    assert "[train] fixed batch: loss" in out and "tokens/s" in out
+    assert "[train-check] 2 layers" in out
+    assert set(counts) == set(chip_smoke.SOURCES)
+
+
+def test_train_xlstm_phase_runs(train_on_cpu, capsys):
+    cfg = dataclasses.replace(scaled_config(ARCHS["xlstm-1.3b"],
+                                            num_layers=8), dtype="bfloat16")
+    chip_smoke.phase_train_xlstm(cfg)
+    out = capsys.readouterr().out
+    assert "[train-xlstm] step 2:" in out
+    assert "ssd_scan launches a step 0 for 7 mLSTM layers" in out
+
+
+def _detached_bf16_attention(monkeypatch):
+    """Attention whose bf16 output carries no grad_fn (what a kernel output
+    outside the autograd Function would be); f32 keeps its gradient."""
+    from repro_torch.models import blocks
+    real = blocks.flash_attention
+
+    def attention(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        return out.detach() if q.dtype == torch.bfloat16 else out
+    monkeypatch.setattr(blocks, "flash_attention", attention)
+
+
+def test_train_phase_sees_a_missing_gradient(train_on_cpu, monkeypatch):
+    _detached_bf16_attention(monkeypatch)
+    with pytest.raises(SystemExit, match="all-zero gradient"):
+        chip_smoke.phase_train_llama(train_on_cpu)
+
+
+def test_train_check_sees_a_missing_gradient(train_on_cpu, monkeypatch):
+    _detached_bf16_attention(monkeypatch)
+    with pytest.raises(SystemExit, match="train-check: gradient of blocks"):
+        chip_smoke.check_train_against_cpu(train_on_cpu)
+
+
+def test_train_cut_is_what_fits_one_card():
+    """8 of llama3-8b's 32 layers: ~16 bytes a parameter with AdamW fit an
+    80 GB card with room for activations; 16 layers leave under 8 GB for
+    them and for the update's f32 temporaries."""
+    from repro_torch.models.common import tree_leaves as leaves
+
+    def n_params(layers):
+        cfg = dataclasses.replace(ARCHS["llama3-8b"], num_layers=layers)
+        return sum(int(np.prod(s.shape))
+                   for s in leaves(chip_smoke.build_model(cfg).specs()))
+    assert round(n_params(chip_smoke.TRAIN_LAYERS) / 1e9, 2) == 2.80
+    assert n_params(chip_smoke.TRAIN_LAYERS) * 16 < 50e9
+    assert n_params(16) * 16 > 72e9
+
+
+@pytest.mark.parametrize("name,arch", [("llama3-8b", "llama3-8b"),
+                                       ("danube", "h2o-danube-3-4b")])
+def test_train_flash_shapes_are_the_models(name, arch):
+    s, hq, hkv, d, window = chip_smoke.TRAIN_FLASH[name]
+    cfg = ARCHS[arch]
+    assert (hq, hkv, d, window) == (cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.resolved_head_dim,
+                                    cfg.sliding_window)
+    assert s > window

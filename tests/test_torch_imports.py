@@ -14,7 +14,8 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 FIRST = ["repro_torch.kernels", "repro_torch.models", "repro_torch.core",
          "repro_torch.serving", "repro_torch.configs", "repro_torch.cluster",
-         "chip_smoke"]
+         "repro_torch.training", "repro_torch.distributed",
+         "repro_torch.launch.train", "chip_smoke"]
 
 PROBE = """
 import importlib, pkgutil, sys

@@ -6,8 +6,12 @@ encoder and cross-attention, llava's prefix; there also row by row, a
 check that a kernel leaving out one key tile fails),
 and the
 SSD scan at chip_smoke.py's shapes (xLSTM, a ragged T, Mamba widths) plus
-the cases of tests/test_ssd_kernel.py; and the MoE layer's determinism. Imports neither JAX nor ``repro``, so it runs on
-a machine with a card and no JAX:
+the cases of tests/test_ssd_kernel.py; the MoE layer's determinism; and
+the training path's pieces on the card: flash's log-sum-exp output, the
+gradients of ``FlashAttention`` (kernel forward) and of ``SsdScan`` (kernel
+forward, plain recompute) against autograd through the plain versions.
+Imports neither JAX nor ``repro``, so it runs on a machine with a card and
+no JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -535,3 +539,134 @@ def test_ssd_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ssd_ops.ssd_scan(q, q, v[:, :4], la)
     with pytest.raises(ValueError, match="mixed devices"):
         ssd_ops.ssd_scan(q, q, v.cpu(), la)
+
+
+# ------------------------------------------------------------- training
+def _rel_fro(a, b) -> float:
+    """Relative Frobenius error of a against b."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+# lse of the kernel against the plain m + log(max(l, 1e-30)) over the same
+# (bf16-rounded) inputs in f32: both take exp of f32 scores, the kernel in
+# base 2 with ex2.approx (~2^-22 relative) and another summation order, so
+# an lse near log(Sk) ~ 8 agrees to ~1e-5; a key tile left out moves it by
+# log(1 - 64 / Sk) or more (> 1e-2 at these shapes)
+LSE_TOL = 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_kernel_lse_matches_plain(cuda, dt):
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    rng = np.random.default_rng(7)
+    for B, Sq, Sk, Hq, Hkv, D, causal, window in FLASH:
+        q = _randn(rng, (B, Sq, Hq, D), dt, cuda)
+        k = _randn(rng, (B, Sk, Hkv, D), dt, cuda)
+        v = _randn(rng, (B, Sk, Hkv, D), dt, cuda)
+        out, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                window=window, lse=True)
+        alone = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+        pos = torch.arange(Sq, dtype=torch.int32, device=cuda)[None]
+        kpos = torch.arange(Sk, dtype=torch.int32, device=cuda)[None]
+        _, ref = plain.flash_fwd(
+            q.float(), k.float(), v.float(), pos.expand(B, Sq),
+            kpos.expand(B, Sk), torch.ones(B, Sk, dtype=torch.bool,
+                                           device=cuda), causal, window, 512)
+        assert lse.shape == (B, Sq, Hq) and lse.dtype == torch.float32
+        assert torch.equal(out, alone), "the lse output moved the output"
+        assert _err(lse, ref) < LSE_TOL, (B, Sq, Sk, D, causal, window)
+
+
+# (B, S, Hq, Hkv, D, causal, window): GQA causal, a window, G = 1, a head
+# dim off the 64-column blocks, bidirectional with Sq != Sk below
+FLASH_GRAD = [(2, 300, 8, 2, 64, True, 0), (1, 400, 8, 2, 128, True, 100),
+              (1, 257, 4, 4, 120, True, 0), (1, 512, 32, 8, 128, True, 0)]
+# gradients of the FlashAttention Function (kernel forward, plain chunked
+# backward) against autograd through the plain forward in f32 on the same
+# inputs, relative Frobenius error: f32 runs the same arithmetic in another
+# order (~1e-6); bf16 adds the rounding of the kernel's output and of the
+# returned gradients to bf16 (2^-9 relative each)
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_grads(q, k, v, w, causal, window):
+    """(dq, dk, dv) of sum(w * attention) through the dispatcher, and the
+    same through autograd of the plain forward on the inputs in f32."""
+    ins = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = flash_ops.flash_attention(*ins, causal=causal, window=window)
+    got = torch.autograd.grad((out.float() * w).sum(), ins)
+    ref_ins = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    b, sq = q.shape[:2]
+    sk = k.shape[1]
+    ref_out = plain.flash_fwd(
+        *ref_ins,
+        torch.arange(sq, dtype=torch.int32, device=q.device)[None]
+        .expand(b, sq),
+        torch.arange(sk, dtype=torch.int32, device=q.device)[None]
+        .expand(b, sk),
+        torch.ones(b, sk, dtype=torch.bool, device=q.device), causal, window,
+        512)[0]
+    ref = torch.autograd.grad((ref_out * w).sum(), ref_ins)
+    return got, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_match_autograd(cuda, dt):
+    rng = np.random.default_rng(8)
+    cases = [(B, S, S, Hq, Hkv, D, c, w) for B, S, Hq, Hkv, D, c, w
+             in FLASH_GRAD] + [(1, 130, 250, 4, 2, 128, False, 0)]
+    for B, Sq, Sk, Hq, Hkv, D, causal, window in cases:
+        q = _randn(rng, (B, Sq, Hq, D), dt, cuda)
+        k = _randn(rng, (B, Sk, Hkv, D), dt, cuda)
+        v = _randn(rng, (B, Sk, Hkv, D), dt, cuda)
+        w = _randn(rng, (B, Sq, Hq, D), torch.float32, cuda)
+        kernels.reset_launch_counts()
+        got, ref = _flash_grads(q, k, v, w, causal, window)
+        assert kernels.launch_counts()["flash_attention"] == 1
+        for name, g, r in zip("qkv", got, ref):
+            assert g.dtype == dt and g.shape == r.shape
+            e = _rel_fro(g, r)
+            assert e < GRAD_RTOL[dt], (name, B, Sq, Sk, D, causal, window, e)
+
+
+# the SsdScan Function against autograd through ssd_chunked (f32, the same
+# inputs): its backward is that same autograd over a recompute, so the two
+# agree to rounding; within 1e-4 * max(1, max|ref|) as the forward checks
+SSD_GRAD = [(1, 512, 4, 512, 513, 128), (1, 512, 128, 16, 64, 128),
+            (2, 100, 3, 24, 1, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qk_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_function_gradients_match_autograd(cuda, qk_dt, with_init):
+    from repro_torch.models.blocks import ssd_chunked
+    rng = np.random.default_rng(9)
+    for case in SSD_GRAD:
+        B, T, H, dk, dv, chunk = case
+        q, k, v, la = _ssd_inputs(rng, case, qk_dt, cuda)
+        init = (_randn(rng, (B, H, dk, dv), torch.float32, cuda)
+                if with_init else None)
+        wy = _randn(rng, (B, T, H, dv), torch.float32, cuda)
+        wf = _randn(rng, (B, H, dk, dv), torch.float32, cuda)
+        xs = [q, k, v, la] + ([init] if with_init else [])
+
+        def run(fn, ins):
+            y, f = fn(*ins[:4], chunk=chunk,
+                      init_state=ins[4] if with_init else None)
+            return (y, f), torch.autograd.grad(
+                (y * wy).sum() + (f * wf).sum(), ins)
+        kernels.reset_launch_counts()
+        (y, f), got = run(ssd_ops.ssd_scan,
+                          [x.detach().requires_grad_() for x in xs])
+        assert kernels.launch_counts()["ssd_scan"] == 1
+        (ry, rf), ref = run(ssd_chunked,
+                            [x.detach().requires_grad_() for x in xs])
+        assert _rel(y, ry) <= SSD_RTOL and _rel(f, rf) <= SSD_RTOL, case
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert _rel(g, r) <= SSD_RTOL, (case, _rel(g, r))
