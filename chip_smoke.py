@@ -126,7 +126,20 @@ no CUDA device or any phase fails. Phases:
    its lse, the plain flash backward, and one causal SDPA forward (plus
    backward) beside them as yardsticks; the ssd Function's plain backward
    at xLSTM's shape.
-15. the kernels line (JSON; launches summed over phases 3-14; each kernel's
+15. distributed: (a) ``repro_torch.launch.serve`` with its default flags
+   on the card (llama3-8b and h2o-danube-3-4b scaled to 4 layers, dense
+   tenants: flash in every prefill), every request finished and the
+   allocator's invariants held; (b) ``distributed_decode_attention`` on 2
+   ranks sharing the card over gloo (spawned, meeting through a file
+   store) at llama3-8b's attention width (Hq 32, Hkv 8, D 128, bf16): B=1
+   at a 131,072-token context (the sequence over both ranks) and B=8 at
+   8,192, each against one rank's ``decode_attention`` on the whole cache
+   within ``ROW_RTOL``, each rank's partial and combine timed apart; (c)
+   one full-width llama3-8b ``Attention.fwd_dec`` under a 2-rank mesh
+   against the same step on one rank: the output and the ranks' cache
+   slices put together. Each part's seconds beside the card's name and
+   power limit.
+16. the kernels line (JSON; launches summed over phases 3-15; each kernel's
    ``shapes`` lists phase 2's timed shape rows and phase 14's flash row)
    and, last, the result line (JSON).
 """
@@ -180,6 +193,17 @@ from repro_torch.training import (  # noqa: E402
     OptimizerConfig, batch_for_step, make_optimizer, make_train_step,
 )
 from repro_torch.training.optimizer import Optimizer  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    MeshLayout, mesh_context, mesh_group,
+)
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, spawn_ranks  # noqa: E402
+from repro_torch.models.attention_ops import (  # noqa: E402
+    decode_attention_partial, distributed_decode_attention, lse_combine,
+)
+from repro_torch.models.blocks import (  # noqa: E402
+    Attention, decode_cache_slices, decode_layout,
+)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
@@ -2716,15 +2740,234 @@ def phase_train(shape_rows):
     return counts
 
 
+# --------------------------------------------------------------- phase 15
+# (b) the distributed flash-decode at llama3-8b's attention width (Hq 32,
+# Hkv 8, D 128, bf16) on DIST_WORLD ranks sharing the card over gloo:
+# name -> (B, context); B=1 at 131,072 tokens splits the sequence over
+# both ranks (kv_seq_full: 512 MiB of K+V, half a rank), B=8 at 8,192 over
+# the model axis (kv_seq)
+DIST_WORLD = 2
+DIST_HEADS = (32, 8, 128)
+DIST_CASES = {"b1_131k": (1, 131072), "b8_8k": (8, 8192)}
+DIST_DTYPE = torch.bfloat16
+DIST_REPS = 5
+# (c) one llama3-8b attention layer's fwd_dec at full width: the batch, the
+# dense cache's length, each row's position (its slot; both ranks' halves)
+DIST_FWD = (4, 8192, (8191, 5000, 4096, 100))
+DIST_FWD_CFG = ARCHS["llama3-8b"]
+
+
+def _wall_ms(fn, reps: int, device: str) -> float:
+    """Host milliseconds a call of ``fn`` takes to finish on the device
+    (each call synchronised): the wall time one rank sees."""
+    fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def dist_rank(rank: int, device: str, heads, cases, dtype, reps: int,
+              fwd_cfg, fwd, out: str) -> None:
+    """One rank of phase 15 (b) and (c) (under ``spawn_ranks``): the
+    cases' seeded q/K/V made whole on every rank, each rank's contiguous
+    slice of the sequence through ``distributed_decode_attention`` on a
+    (1, world) mesh; its partial and its combine timed apart; rank 0 holds
+    the result against single-rank ``decode_attention`` on the whole
+    cache. Then one ``Attention.fwd_dec`` under the mesh against the same
+    step on rank 0 alone, the ranks' cache slices gathered there. Writes
+    this rank's numbers (JSON) to ``out`` % rank."""
+    import torch.distributed as dist
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    world = dist.get_world_size()
+    mesh = make_mesh(MeshLayout(("data", "model"), (1, world)), device)
+    hq, hkv, d = heads
+    res = {}
+    for name, (b, ctx) in cases.items():
+        gen = torch.Generator(device=device).manual_seed(15)
+        q = torch.randn(b, hq, d, generator=gen, device=device).to(dtype)
+        k, v = (torch.randn(b, ctx, hkv, d, generator=gen,
+                            device=device).to(dtype) for _ in range(2))
+        q_pos = torch.full((b,), ctx - 1, dtype=torch.int32, device=device)
+        kv_pos = torch.arange(ctx, dtype=torch.int32,
+                              device=device)[None].expand(b, ctx)
+        kv_valid = torch.ones(b, ctx, dtype=torch.bool, device=device)
+        kv_axes, _ = decode_layout(mesh, b, ctx)
+        rows, seq = decode_cache_slices(mesh, b, ctx)
+        local = (q[rows], k[rows, seq].contiguous(),
+                 v[rows, seq].contiguous(), q_pos[rows], kv_pos[rows, seq],
+                 kv_valid[rows, seq])
+        if rank:
+            del k, v
+        group = mesh_group(mesh, kv_axes)
+        part = decode_attention_partial(*local)
+        rec = {"kv_axes": kv_axes, "slice": [seq.start, seq.stop],
+               "partial_ms": _wall_ms(lambda: decode_attention_partial(
+                   *local), reps, device),
+               "combine_ms": _wall_ms(lambda: lse_combine(*part, group),
+                                      reps, device),
+               "total_ms": _wall_ms(lambda: distributed_decode_attention(
+                   mesh, kv_axes, *local), reps, device)}
+        got = distributed_decode_attention(mesh, kv_axes, *local)
+        if rank == 0:
+            ref = plain.decode_attention(q, k, v, q_pos, kv_pos, kv_valid)
+            rec["row_err"] = row_err(got[rows], ref[rows])
+            rec["finite"] = bool(torch.isfinite(got).all())
+            rec["single_ms"] = _wall_ms(lambda: plain.decode_attention(
+                q, k, v, q_pos, kv_pos, kv_valid), reps, device)
+        dist.barrier()
+        res[name] = rec
+        del q, local, part, got
+    # (c) fwd_dec of one full-width attention layer
+    b, cache, positions = fwd
+    gen = torch.Generator(device=device).manual_seed(16)
+    attn = Attention()
+    p = {w: (0.02 * torch.randn(spec.shape, generator=gen,
+                                device=device)).to(dtype)
+         for w, spec in attn.specs(fwd_cfg).items()}
+    hkv, hd = fwd_cfg.num_kv_heads, fwd_cfg.resolved_head_dim
+    x = torch.randn(b, fwd_cfg.d_model, generator=gen, device=device).to(dtype)
+    k0, v0 = (torch.randn(b, cache, hkv, hd, generator=gen,
+                          device=device).to(dtype) for _ in range(2))
+    pos = torch.tensor(positions, dtype=torch.int32, device=device)
+    kv_pos = torch.arange(cache, dtype=torch.int32,
+                          device=device)[None].expand(b, cache)
+    kv_valid = kv_pos <= pos[:, None]
+    rows, seq = decode_cache_slices(mesh, b, cache)
+    state = {"k": k0[rows, seq].clone(), "v": v0[rows, seq].clone()}
+    shared = {"pos": pos, "slot": pos, "cache_len": cache,
+              "kv_pos": kv_pos[rows, seq], "kv_valid": kv_valid[rows, seq]}
+    t0 = time.perf_counter()
+    with mesh_context(mesh):
+        y, _ = attn.fwd_dec(p, x, state, shared, fwd_cfg)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rec = {"step_ms": (time.perf_counter() - t0) * 1e3}
+    # the slices in rank order make up the cache (one sequence block each)
+    parts = {n: [torch.empty_like(state[n].cpu()) for _ in range(world)]
+             for n in ("k", "v")}
+    for n in ("k", "v"):
+        dist.all_gather(parts[n], state[n].cpu())
+    if rank == 0:
+        one = {"k": k0.clone(), "v": v0.clone()}
+        y1, _ = attn.fwd_dec(p, x, one, {"pos": pos, "slot": pos,
+                                         "kv_pos": kv_pos,
+                                         "kv_valid": kv_valid}, fwd_cfg)
+        ar, slot = torch.arange(b), pos.long().cpu()
+        rec["row_err"] = row_err(y, y1)
+        rec["finite"] = bool(torch.isfinite(y).all())
+        rec["cache_err"] = max(row_err(torch.cat(parts[n], dim=1),
+                                       one[n].cpu()) for n in ("k", "v"))
+        # every row's new K/V landed, on whichever rank holds its slot
+        rec["rows_written"] = all(
+            bool((torch.cat(parts[n], dim=1)[ar, slot]
+                  != orig[ar, slot].cpu()).flatten(1).any(1).all())
+            for n, orig in (("k", k0), ("v", v0)))
+    res["fwd_dec"] = rec
+    with open(out % rank, "w") as f:
+        json.dump(res, f)
+
+
+def phase_serve_cli():
+    """15 (a): ``repro_torch.launch.serve`` with its default tenants
+    (llama3-8b and h2o-danube-3-4b, scaled to 4 layers, f32) on the card;
+    the CLI checks the allocator's invariants itself. Returns the launch
+    counts of its run."""
+    kernels.reset_launch_counts()
+    eng = serve_cli.main(["--device", DEVICE])
+    _sync()
+    counts = kernels.launch_counts()
+    gen = [len(r.generated) for r in eng.finished]
+    log(f"[dist] (a) serve CLI: finished {len(eng.finished)} requests, "
+        f"tokens {gen}, {eng.step_idx} steps; launches {counts}")
+    if len(eng.finished) != 8 or not all(gen):
+        fail(f"serve CLI: {len(eng.finished)} of 8 requests finished")
+    if DEVICE == "cuda" and counts["flash_attention"] == 0:
+        fail(f"serve CLI: the flash kernel never launched: {counts}")
+    return counts
+
+
+def phase_dist(tmp_dir: str):
+    """15 (b) and (c) on ``DIST_WORLD`` ranks (``dist_rank``); reads each
+    rank's numbers back, logs them and checks rank 0's errors."""
+    out = os.path.join(tmp_dir, "dist_rank%d.json")
+    spawn_ranks(dist_rank, DIST_WORLD, DEVICE, DIST_HEADS, DIST_CASES,
+                DIST_DTYPE, DIST_REPS, DIST_FWD_CFG, DIST_FWD, out)
+    recs = []
+    for r in range(DIST_WORLD):
+        with open(out % r) as f:
+            recs.append(json.load(f))
+    tol = ROW_RTOL[DIST_DTYPE]
+    hq, hkv, d = DIST_HEADS
+    for name, (b, ctx) in DIST_CASES.items():
+        r0 = recs[0][name]
+        per_rank = "; ".join(
+            f"rank {i} keys {rec[name]['slice']}: partial "
+            f"{rec[name]['partial_ms']:.3f} ms, combine "
+            f"{rec[name]['combine_ms']:.3f} ms, distributed call "
+            f"{rec[name]['total_ms']:.3f} ms" for i, rec in enumerate(recs))
+        log(f"[dist] (b) {name} (B={b}, context {ctx}, Hq {hq}, Hkv {hkv}, "
+            f"D {d}, {DIST_DTYPE}) over {r0['kv_axes']} on {DIST_WORLD} "
+            f"ranks: row_err {r0['row_err']:.3g} (limit {tol}) against one "
+            f"rank's decode_attention ({r0['single_ms']:.3f} ms); "
+            f"{per_rank}")
+        if not (r0["finite"] and r0["row_err"] <= tol):
+            fail(f"distributed decode {name}: row_err {r0['row_err']} > "
+                 f"{tol} or not finite")
+    f0 = recs[0]["fwd_dec"]
+    b, cache, positions = DIST_FWD
+    steps = ", ".join(f"{rec['fwd_dec']['step_ms']:.3f}" for rec in recs)
+    log(f"[dist] (c) fwd_dec {DIST_FWD_CFG.name} (B={b}, cache {cache}, "
+        f"slots {list(positions)}) on {DIST_WORLD} ranks against one: y "
+        f"row_err {f0['row_err']:.3g}, caches row_err {f0['cache_err']:.3g} "
+        f"(limit {tol}), new rows written {f0['rows_written']}; step "
+        f"{steps} ms per rank")
+    if not (f0["finite"] and f0["row_err"] <= tol and f0["cache_err"] <= tol
+            and f0["rows_written"]):
+        fail(f"fwd_dec on {DIST_WORLD} ranks differs from one rank: {f0}")
+
+
+def phase_distributed():
+    """Phase 15: (a) the serve CLI, (b) and (c) on ranks sharing the card;
+    each part's seconds logged beside the card's name and power limit.
+    Returns (a)'s launch counts."""
+    import tempfile
+    card = _card()
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, run in (("a", lambda: counts.update(phase_serve_cli())),
+                          ("b, c", lambda: phase_dist(tmp))):
+            t0 = time.perf_counter()
+            run()
+            _free()
+            log(f"[dist] part ({part}) took {time.perf_counter() - t0:.1f} s"
+                f" on {card}")
+    return counts
+
+
+def _card() -> str:
+    if DEVICE != "cuda":
+        return "the CPU"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
     checked, shape_rows = phase_kernels()
-    # launches summed over every serving phase's runs and phase 14's two
-    # training runs (each resets the counts just before it runs and reads
-    # them just after)
+    # launches summed over every serving phase's runs, phase 14's two
+    # training runs and phase 15's serve CLI (each resets the counts just
+    # before it runs and reads them just after)
     launches = Counter()
     for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
                   phase_moonshot, phase_jamba, phase_danube, phase_whisper,
@@ -2732,7 +2975,9 @@ def main() -> None:
                   phase_fleet_scale):
         launches.update(phase())
     launches.update(phase_train(shape_rows))
-    log(f"[launches] every serving and training phase: {dict(launches)}")
+    launches.update(phase_distributed())
+    log(f"[launches] every serving, training and CLI phase: "
+        f"{dict(launches)}")
     rows = []
     for name, (err, (ms, pms, bms, by, lib, _shape)) in checked.items():
         src, replaces = SOURCES[name]

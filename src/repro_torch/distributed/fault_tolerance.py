@@ -54,11 +54,11 @@ class StepWatchdog:
 
 
 def elastic_reshard(tree, new_shardings):
-    """Re-place a tree onto another mesh's shardings: the port has no mesh
-    yet."""
+    """Re-place a tree onto another mesh's shardings: the port has meshes
+    but no sharded parameters yet."""
     raise NotImplementedError(
-        "elastic_reshard needs the port's meshes and shardings "
-        "(ROADMAP queue 1 item 9)")
+        "elastic_reshard needs the port's parameter shardings "
+        "(ROADMAP queue 1 item 9b)")
 
 
 class TrainRunner:

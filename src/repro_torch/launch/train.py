@@ -8,8 +8,8 @@ kernels run every attention and SSD forward) or, with ``--device cpu``, on
 the plain PyTorch versions. ``--scaled`` takes the reduced config of the
 same family (``--layers`` sets its depth); without it the published
 config runs, cut to ``--layers`` layers when given. Only ``--mesh host``
-(one device) is ported: the production meshes wait for ROADMAP queue 1
-item 9. Fault tolerance: checkpoints every ``--ckpt-every`` steps;
+(one device) is ported: training over the production meshes waits for
+ROADMAP queue 1 item 9b. Fault tolerance: checkpoints every ``--ckpt-every`` steps;
 rerunning with the same ``--ckpt-dir`` resumes from the latest checkpoint
 and replays identical data (the pipeline is keyed by step).
 """
@@ -59,8 +59,8 @@ def main(argv=None):
 
     if args.mesh != "host":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; meshes "
-            "wait for ROADMAP queue 1 item 9")
+            f"--mesh {args.mesh}: the port trains on one device; training "
+            "over meshes waits for ROADMAP queue 1 item 9b")
     cfg = get_arch(args.arch)
     if args.scaled:
         over = {"num_layers": args.layers} if args.layers else {}

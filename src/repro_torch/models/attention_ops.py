@@ -21,12 +21,21 @@ log-sum-exp (the plain chunked softmax here, the CUDA kernel in
 ``kernels.flash_attention``), and its backward recomputes the scores chunk
 by chunk in f32 from that log-sum-exp, so no [Sq, Sk] probabilities are
 kept for it.
+
+``distributed_decode_attention`` is the flash-decode with the KV sequence
+split over ranks of a ``DeviceMesh``: each rank runs the plain chunked
+softmax over its slice (the JAX reference's partial is ``jnp``, not a
+Pallas kernel) and ``lse_combine`` merges the partials with two
+all-reduces over the ranks' process group.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import mesh_group
 
 NEG_INF = -1e30
 
@@ -211,6 +220,50 @@ def decode_attention(q, k_cache, v_cache, q_pos, kv_pos, kv_valid, *,
     o, m, l = _flash_core(qg, k_cache, v_cache, q_pos[:, None], kv_pos,
                           kv_valid, causal=causal, window=window, chunk=chunk)
     return _normalize(o, m, l, q.dtype).reshape(b, 1, hq, d)[:, 0]
+
+
+def decode_attention_partial(q, k_cache, v_cache, q_pos, kv_pos, kv_valid, *,
+                             window: int = 0, chunk: int = 1024):
+    """Decode attention returning unnormalized (o, m, l) for LSE-combining:
+    o [B, 1, Hkv, G, D], m and l [B, 1, Hkv, G], all f32."""
+    b, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    qg = _group_q(q[:, None], hkv) * (d ** -0.5)
+    return _flash_core(qg, k_cache, v_cache, q_pos[:, None], kv_pos, kv_valid,
+                       causal=True, window=window, chunk=chunk)
+
+
+def lse_combine(o, m, l, group):
+    """Combine per-rank (o, m, l) partials over the process group
+    ``group``: the cross-rank step of distributed flash-decode. One
+    all-reduce (MAX) of m, then one (SUM) of l and o, each rescaled by
+    exp(m - max m) (the two sums travel as one tensor)."""
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.exp(m - m_g)
+    ol = torch.cat([o * scale[..., None], (l * scale)[..., None]], dim=-1)
+    dist.all_reduce(ol, op=dist.ReduceOp.SUM, group=group)
+    return ol[..., :-1], m_g, ol[..., -1]
+
+
+def distributed_decode_attention(mesh, kv_axes, q, k_cache, v_cache, q_pos,
+                                 kv_pos, kv_valid, *, window: int = 0,
+                                 chunk: int = 1024):
+    """Flash-decode with the KV sequence split over ``kv_axes`` of the
+    ``DeviceMesh`` ``mesh``: each rank attends over its own contiguous
+    slice of the cache (``k_cache``/``v_cache`` [b, Sk_local, Hkv, D],
+    ``kv_pos``/``kv_valid`` [b, Sk_local]) and the partials are
+    LSE-combined over the ranks of ``kv_axes``. q [b, Hq, D] and q_pos [b]
+    are this rank's rows: all of the batch, or its block where the caller
+    splits the batch over other axes (the reference's ``batch_axes``),
+    which enter no collective here. Returns [b, Hq, D] in q's dtype, the
+    same on every rank of the group. This is what makes global_batch=1 x
+    500k-context decode shardable."""
+    o, m, l = decode_attention_partial(q, k_cache, v_cache, q_pos, kv_pos,
+                                       kv_valid, window=window, chunk=chunk)
+    o, m, l = lse_combine(o, m, l, mesh_group(mesh, kv_axes))
+    b, hq, d = q.shape
+    return _normalize(o, m, l, q.dtype).reshape(b, hq, d)
 
 
 def paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

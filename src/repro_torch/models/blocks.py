@@ -23,7 +23,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.attention_ops import decode_attention
+from repro_torch.distributed.sharding import (
+    axis_sizes, get_mesh, get_rules, mesh_group, mesh_index, spec_for,
+)
+from repro_torch.models.attention_ops import (
+    decode_attention, distributed_decode_attention,
+)
 from repro_torch.models.common import Spec, dtype_of, remat
 
 
@@ -163,6 +168,12 @@ class Attention:
         returns an updated copy), so the state it returns is empty: nothing
         is left for the caller to write back.
 
+        Under a mesh whose model axis is > 1 (``mesh_context``), shared
+        also holds ``cache_len``, the whole cache's length, and the state
+        and kv_pos/kv_valid hold this rank's slice of that cache
+        (``decode_cache_slices``): the flash-decode over the ranks where
+        the mesh splits the sequence, local decode where it does not.
+
         Cross-attention: Q only, against the cross cache ``state`` {k, v}
         [B, Ssrc, Hkv, hd] under ``shared["cross_pos"]``/``["cross_valid"]``
         [B, Ssrc], unmasked otherwise; it writes nothing."""
@@ -176,15 +187,136 @@ class Attention:
         q, k_new, v_new = self._qkv(p, x, cfg)
         q = rope(q, pos, cfg.rope_theta)
         k_new = rope(k_new, pos, cfg.rope_theta)
-        rows = torch.arange(x.shape[0], device=x.device)
-        slot = shared["slot"].long()
-        state["k"][rows, slot] = k_new
-        state["v"][rows, slot] = v_new
-        out = decode_attention(q, state["k"], state["v"], pos,
-                               shared["kv_pos"], shared["kv_valid"],
-                               window=cfg.sliding_window)
+        mesh = get_mesh()
+        kv_axes = batch_axes = ()
+        if mesh is not None and axis_sizes(mesh).get("model", 1) > 1:
+            kv_axes, batch_axes = _mesh_decode_layout(mesh, state, shared)
+        if kv_axes:
+            out = self._dec_sharded(mesh, kv_axes, batch_axes, q, k_new,
+                                    v_new, state, shared, cfg)
+        else:
+            rows = torch.arange(x.shape[0], device=x.device)
+            slot = shared["slot"].long()
+            state["k"][rows, slot] = k_new
+            state["v"][rows, slot] = v_new
+            out = decode_attention(q, state["k"], state["v"], pos,
+                                   shared["kv_pos"], shared["kv_valid"],
+                                   window=cfg.sliding_window)
         y = _einsum("bhk,hkd->bd", out, p["wo"]).to(x.dtype)
         return y, {}
+
+    @staticmethod
+    def _dec_sharded(mesh, kv_axes, batch_axes, q, k_new, v_new, state,
+                     shared, cfg):
+        """``fwd_dec``'s attention under a ``DeviceMesh`` that splits the
+        cache sequence over ``kv_axes`` (``decode_layout``): the
+        flash-decode. q, the new K/V rows, ``pos`` and ``slot`` hold the
+        whole batch on every rank; the state's k/v and
+        ``kv_pos``/``kv_valid`` hold this rank's rows (its block along
+        ``batch_axes``) and its contiguous slice of the sequence. Only the
+        rank whose slice holds ``slot`` changes that row. Returns the whole
+        batch's [B, Hq, hd]."""
+        b = q.shape[0]
+        rows = _block(mesh, batch_axes, b)
+        s_l = state["k"].shape[1]
+        slot = shared["slot"][rows].long() - mesh_index(mesh, kv_axes) * s_l
+        mine = ((slot >= 0) & (slot < s_l))[:, None, None]
+        idx = (torch.arange(slot.shape[0], device=q.device),
+               slot.clamp(0, s_l - 1))
+        # rows whose slot lies elsewhere write back what they hold: no
+        # host sync on a boolean index
+        for name, new in (("k", k_new), ("v", v_new)):
+            cache = state[name]
+            cache[idx] = torch.where(mine, new[rows], cache[idx])
+        out = distributed_decode_attention(
+            mesh, kv_axes, q[rows], state["k"], state["v"],
+            shared["pos"][rows], shared["kv_pos"], shared["kv_valid"],
+            window=cfg.sliding_window)
+        if batch_axes:
+            parts = [torch.empty_like(out) for _ in range(math.prod(
+                axis_sizes(mesh)[ax] for ax in batch_axes))]
+            torch.distributed.all_gather(parts, out.contiguous(),
+                                         group=mesh_group(mesh, batch_axes))
+            out = torch.cat(parts)
+        return out
+
+
+def _kv_shard_axes(mesh, kv_shape) -> Tuple[str, ...]:
+    """Which mesh axes shard the KV-cache sequence dim (flash-decode)."""
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    if sizes.get("model", 1) == 1:
+        return ()
+    logical = ("batch", "kv_seq_full" if kv_shape[0] == 1 else "kv_seq",
+               None, None)
+    spec = spec_for(logical, kv_shape, mesh, get_rules())
+    seq_part = spec[1] if len(spec) > 1 else None
+    if seq_part is None:
+        return ()
+    return seq_part if isinstance(seq_part, tuple) else (seq_part,)
+
+
+def _batch_shard_axes(mesh, batch: int, kv_axes) -> Tuple[str, ...]:
+    sizes = axis_sizes(mesh)
+    axes = []
+    n = 1
+    for ax in ("pod", "data"):
+        if ax in sizes and ax not in kv_axes:
+            size = sizes[ax]
+            if size > 1 and batch % (n * size) == 0:
+                axes.append(ax)
+                n *= size
+    return tuple(axes)
+
+
+def decode_layout(mesh, batch: int, cache_len: int
+                  ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(kv_axes, batch_axes) of a decode cache [batch, cache_len, ...]
+    under the mesh: the reference's ``_kv_shard_axes`` and, where those
+    split the sequence, its ``_batch_shard_axes``. ((), ()) where no axis
+    splits the sequence: the cache stays whole on every rank and decode
+    runs locally, as in the reference."""
+    kv_axes = _kv_shard_axes(mesh, (batch, cache_len, 1, 1))
+    if not kv_axes:
+        return (), ()
+    return kv_axes, _batch_shard_axes(mesh, batch, kv_axes)
+
+
+def _mesh_decode_layout(mesh, state, shared):
+    """``fwd_dec``'s ``decode_layout`` under a mesh whose model axis is
+    > 1, at the whole cache's length ``shared["cache_len"]``; the state
+    must hold this rank's slice of that cache (``decode_cache_slices``)."""
+    if "cache_len" not in shared:
+        raise ValueError("under a mesh whose model axis is > 1, fwd_dec "
+                         "needs shared['cache_len'], the whole cache's "
+                         "length")
+    b, s_c = shared["pos"].shape[0], int(shared["cache_len"])
+    rows, seq = decode_cache_slices(mesh, b, s_c)
+    want = (rows.stop - rows.start, seq.stop - seq.start)
+    if tuple(state["k"].shape[:2]) != want:
+        raise ValueError(
+            f"this rank's slice of a [{b}, {s_c}] cache is {want} (rows, "
+            f"sequence); the state holds {tuple(state['k'].shape[:2])}")
+    return decode_layout(mesh, b, s_c)
+
+
+def _block(mesh, axes, n: int) -> slice:
+    """This rank's contiguous block of a dimension of ``n`` split over
+    ``axes``."""
+    parts = math.prod(axis_sizes(mesh)[ax] for ax in axes)
+    if n % parts:
+        raise ValueError(f"a dimension of {n} does not split over {axes} "
+                         f"({parts} blocks)")
+    i = mesh_index(mesh, axes)
+    return slice(i * n // parts, (i + 1) * n // parts)
+
+
+def decode_cache_slices(mesh, batch: int, cache_len: int
+                        ) -> Tuple[slice, slice]:
+    """This rank's rows and sequence span of a decode cache [batch,
+    cache_len, ...] under the mesh: the slice ``Attention.fwd_dec`` reads
+    from the state and ``kv_pos``/``kv_valid``."""
+    kv_axes, batch_axes = decode_layout(mesh, batch, cache_len)
+    return _block(mesh, batch_axes, batch), _block(mesh, kv_axes, cache_len)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.expert_remap import step_fetch_plan
 from repro_torch.core.layer_selection import RemapPlan
 from repro_torch.core.transfer_pipeline import StepTiming, simulate_decode_step
+from repro_torch.distributed.analytic_cost import decode_collective_bytes
+from repro_torch.distributed.sharding import serving_shard_degrees
 from repro_torch.models.lm import block_pattern
 from repro_torch.serving.hw import HardwareSpec
 
@@ -72,11 +74,16 @@ class PerfModel:
                                                        self.dtype_bytes)
         self.degrees = None
         if self.shards > 1:
-            # the sharded model needs the port of distributed/ (ROADMAP,
-            # queue 1: distributed and launch)
-            raise NotImplementedError(
-                "PerfModel(shards > 1) waits for the port of distributed/ "
-                "(ROADMAP)")
+            self.degrees = serving_shard_degrees(self.cfg, self.shards)
+            self.param_bytes //= self.shards
+            self.active_param_bytes //= self.shards
+            self.shard_kv_token_bytes //= self.degrees.kv_heads
+            # collective wire bytes scale linearly with tokens; the count
+            # (latency floor) does not — precompute both at one token
+            wire1, n_coll = decode_collective_bytes(
+                self.cfg, 1, self.shards, self.dtype_bytes)
+            self._coll_wire_per_token = wire1
+            self._coll_count = n_coll
 
     # ------------------------------------------------------------ collectives
     def collective_time(self, tokens: int) -> float:

@@ -41,8 +41,9 @@ simulator units (seconds/bytes) instead of hand-maintaining parallel
 
 This is the PyTorch/CUDA port of ``repro.serving.runtime``. The engine
 lowering runs on the card unless ``build("engine", device="cpu")`` says
-otherwise. A tenant with ``shards > 1`` raises ``NotImplementedError`` on
-both backends until ``distributed/`` is ported (ROADMAP, queue 1).
+otherwise. A tenant with ``shards > 1`` lowers to the simulator's SPMD
+shard-set model; the engine, which executes one device, refuses it with
+``NotImplementedError``, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -176,8 +177,8 @@ class TenantSpec:
         if self.shards > 1:
             raise NotImplementedError(
                 "the functional engine executes one device; tenants with "
-                "shards > 1 lower to the simulator's SPMD shard-set model, "
-                "which waits for the port of distributed/ (ROADMAP)")
+                "shards > 1 lower to the simulator's SPMD shard-set model "
+                "(use backend='sim')")
         return TenantConfig(
             cfg=self.cfg, params=self.params, max_batch=self.max_batch,
             max_context=self.max_context, priority=self.priority,

@@ -489,3 +489,61 @@ def test_train_flash_shapes_are_the_models(name, arch):
                                     cfg.resolved_head_dim,
                                     cfg.sliding_window)
     assert s > window
+
+
+@pytest.fixture
+def dist_on_cpu(monkeypatch):
+    """Phase 15 at a small width on the CPU: (b)'s cases at 4/2 heads of 16
+    (B=1 over 256 keys, B=4 over 64), (c)'s fwd_dec on one layer of the
+    scaled llama in bf16 with a 64-slot cache, one timed rep."""
+    cfg = dataclasses.replace(scaled_config(ARCHS["llama3-8b"],
+                                            num_layers=1), dtype="bfloat16")
+    for name, value in (("DEVICE", "cpu"), ("DIST_HEADS", (4, 2, 16)),
+                        ("DIST_CASES", {"b1": (1, 256), "b4": (4, 64)}),
+                        ("DIST_REPS", 1), ("DIST_FWD_CFG", cfg),
+                        ("DIST_FWD", (4, 64, (63, 40, 32, 3)))):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_distributed_phase_runs(dist_on_cpu, capsys):
+    """Phase 15 on 2 gloo ranks on the CPU: the serve CLI, both decode
+    cases and the fwd_dec step pass their checks and print their times."""
+    counts = chip_smoke.phase_distributed()
+    assert counts["flash_attention"] == 0          # the plain versions
+    out = capsys.readouterr().out
+    assert "[dist] (a) serve CLI: finished 8 requests" in out
+    for name in ("b1", "b4"):
+        line = next(x for x in out.splitlines()
+                    if x.startswith(f"[dist] (b) {name} "))
+        assert "rank 0 keys" in line and "rank 1 keys" in line
+        assert "partial" in line and "combine" in line
+    assert "new rows written True" in out
+    assert "part (b, c) took" in out and "on the CPU" in out
+
+
+def test_distributed_phase_fails_with_a_rank(dist_on_cpu, monkeypatch,
+                                             tmp_path):
+    """A rank that fails (here: 3 query heads over 2 KV heads) fails the
+    phase."""
+    monkeypatch.setattr(chip_smoke, "DIST_HEADS", (3, 2, 16))
+    with pytest.raises(Exception, match="ProcessRaisedException|3, 2|"
+                                        "process 0 terminated"):
+        chip_smoke.phase_dist(str(tmp_path))
+
+
+def test_distributed_phase_shapes_are_llama3_8b():
+    """Phase 15 runs at llama3-8b's attention width: its heads and head
+    dim, B=1 over 131,072 keys (512 MiB of bf16 K+V, half a rank on 2),
+    B=8 at 8,192; (c)'s slots lie in both ranks' halves of its cache."""
+    cfg = ARCHS["llama3-8b"]
+    assert chip_smoke.DIST_HEADS == (cfg.num_heads, cfg.num_kv_heads,
+                                     cfg.resolved_head_dim)
+    assert chip_smoke.DIST_FWD_CFG is cfg
+    assert chip_smoke.DIST_CASES == {"b1_131k": (1, 131072),
+                                     "b8_8k": (8, 8192)}
+    assert 2 * 131072 * cfg.num_kv_heads * cfg.resolved_head_dim * 2 \
+        == 512 * 2**20
+    b, cache, slots = chip_smoke.DIST_FWD
+    half = cache // chip_smoke.DIST_WORLD
+    assert len(slots) == b and max(slots) < cache
+    assert {s // half for s in slots} == set(range(chip_smoke.DIST_WORLD))

@@ -117,25 +117,21 @@ def test_engine_matches_jax_engine(weights, case):
 
 
 def test_unported_paths_raise(weights):
-    """A tenant striped over shards (``TenantSpec(shards=2)``) raises
-    ``NotImplementedError`` naming the ROADMAP on both backends, as
-    ``PerfModel(shards=2)`` does, until ``distributed/`` is ported; every
+    """A tenant striped over shards (``TenantSpec(shards=2)``) is refused
+    by the engine, which executes one device, with ``NotImplementedError``
+    pointing to the simulator as the JAX engine's does (the simulator and
+    ``PerfModel(shards=2)`` serve it: tests/test_torch_shard_set.py); every
     config builds as a dense (paged=False) tenant, enc-dec (whisper) and
     VLM (llava) too (tests/test_torch_engine_encdec.py serves them), while
     paged=True is refused with a ValueError for whisper and llava (the
     reference has no correct paged answer for either: ROADMAP queue 3) and
     for a stack with Mamba layers (the JAX engine asserts the same)."""
-    from repro_torch.serving import (
-        GH200, PerfModel, RuntimeConfig, TenantSpec,
-    )
+    from repro_torch.serving import RuntimeConfig, TenantSpec
     cfg, jp, tcfg, tp = weights["A"]
     conf = RuntimeConfig(tenants={"A": TenantSpec(tcfg, params=tp,
                                                   paged=True, shards=2)})
-    for backend, kw in (("sim", {}), ("engine", {"device": "cpu"})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            conf.build(backend, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PerfModel(tcfg, GH200, shards=2)
+    with pytest.raises(NotImplementedError, match="backend='sim'"):
+        conf.build("engine", device="cpu")
     for arch, what in (("whisper-medium", "an encoder-decoder"),
                        ("llava-next-34b", "a VLM prefix")):
         mcfg = tcfgs.scaled_config(tcfgs.ARCHS[arch], num_layers=2)

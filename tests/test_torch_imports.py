@@ -15,6 +15,11 @@ ROOT = Path(__file__).resolve().parents[1]
 FIRST = ["repro_torch.kernels", "repro_torch.models", "repro_torch.core",
          "repro_torch.serving", "repro_torch.configs", "repro_torch.cluster",
          "repro_torch.training", "repro_torch.distributed",
+         "repro_torch.distributed.sharding",
+         "repro_torch.distributed.analytic_cost",
+         "repro_torch.models.attention_ops", "repro_torch.models.blocks",
+         "repro_torch.serving.perf_model", "repro_torch.launch",
+         "repro_torch.launch.mesh", "repro_torch.launch.serve",
          "repro_torch.launch.train", "chip_smoke"]
 
 PROBE = """
