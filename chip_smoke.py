@@ -190,7 +190,8 @@ from repro_torch.serving.hw import GH200  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
 from repro_torch.serving.traces import tiny_trace  # noqa: E402
 from repro_torch.training import (  # noqa: E402
-    OptimizerConfig, batch_for_step, make_optimizer, make_train_step,
+    OptimizerConfig, batch_for_step, checkpoint, make_optimizer,
+    make_train_step,
 )
 from repro_torch.training.optimizer import Optimizer  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
@@ -491,6 +492,16 @@ def _page_table(b: int, n: int, n_pages: int, gen):
 
 def _err(out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
+
+
+def update_err(out, ref, init) -> float:
+    """|d - d_ref| / max(|d|, |d_ref|), Frobenius norms, of the updates
+    d = out - init and d_ref = ref - init: 0 where they agree, 1 where
+    either is zero (no update) and the other is not, or both are."""
+    d_ref = ref.float() - init.float()
+    d = out.float() - init.float()
+    top = max(d.norm().item(), d_ref.norm().item())
+    return (d - d_ref).norm().item() / top if top else 1.0
 
 
 def row_err(out, ref) -> float:
@@ -2376,11 +2387,11 @@ def instrument_step(model, opt):
         marks[-1].append(_mark())
         return out
 
-    def update(grads, state, params):
+    def update(grads, state, params, *shardings):
         marks[-1].append(_mark())
         grad_max.append(torch.stack([g.abs().amax()
                                      for g in tree_leaves(grads)]))
-        out = opt.update(grads, state, params)
+        out = opt.update(grads, state, params, *shardings)
         marks[-1].append(_mark())
         return out
     model.train_loss = train_loss
@@ -2656,14 +2667,12 @@ def check_train_kernels(gen):
             fail(f"ssd_scan gradients at {what}: {errs} > {SSD_RTOL}")
 
 
-def time_train_kernels(gen, rows):
-    """(e) at (a)'s attention shape: the kernel with and without its lse
-    output (graph replay) beside one causal SDPA forward; the plain
-    forward; the plain backward (``flash_bwd``) beside one causal SDPA
-    forward plus backward (eager calls, CUDA events); then the ssd
-    Function's plain backward at xLSTM's shape. Appends flash's row at
-    (a)'s shape to ``rows``."""
-    s, hq, hkv, d, _ = TRAIN_FLASH["llama3-8b"]
+def time_train_flash(gen, rows, tag: str, shape, label: str):
+    """Flash at a training shape (B=1, S, Hq, Hkv, D, causal, bf16) with
+    and without its lse output (graph replay), beside one causal SDPA
+    forward, in turns; the plain forward; the bound. Appends the kernels
+    line's shape row (the lse call) to ``rows``; returns q, k, v."""
+    s, hq, hkv, d = shape
     q, k, v = _flash_train_inputs(gen, s, hq, hkv, d)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     calls = 5
@@ -2678,14 +2687,27 @@ def time_train_kernels(gen, rows):
     plain_ms = time_ms(lambda: plain.flash_attention(q, k, v), 2, warmup=1)
     nbytes, flops = attention_work(s, s, hq, hkv, d)
     bms, by = bound(nbytes + s * hq * 4, flops)   # + the lse written
-    log(f"[train-kernels] time flash_attention (B=1 S={s} causal bf16, lse): "
-        f"{ms['lse']:.4f} ms (graph replay); without lse {ms['no_lse']:.4f} "
-        f"ms; SDPA forward {ms['sdpa']:.4f} ms, kernel/SDPA "
-        f"{ms['lse'] / ms['sdpa']:.3f}; plain {plain_ms:.4f} ms; bound "
-        f"{bms:.4f} ms ({by}), {bms / ms['lse']:.3f} of it")
-    rows.append(_shape_row("flash_attention",
-                           f"train llama3-8b B=1 S={s} causal, lse",
-                           ms["lse"], plain_ms, bms, by, ms["sdpa"]))
+    log(f"[{tag}] time flash_attention (B=1 S={s} Hq {hq} Hkv {hkv} D {d} "
+        f"causal bf16, lse): {ms['lse']:.4f} ms (graph replay); without lse "
+        f"{ms['no_lse']:.4f} ms; SDPA forward {ms['sdpa']:.4f} ms, "
+        f"kernel/SDPA {ms['lse'] / ms['sdpa']:.3f}; plain {plain_ms:.4f} ms; "
+        f"bound {bms:.4f} ms ({by}), {bms / ms['lse']:.3f} of it")
+    rows.append(_shape_row("flash_attention", label, ms["lse"], plain_ms,
+                           bms, by, ms["sdpa"]))
+    return q, k, v
+
+
+def time_train_kernels(gen, rows):
+    """(e) at (a)'s attention shape: the kernel with and without its lse
+    output (graph replay) beside one causal SDPA forward; the plain
+    forward; the plain backward (``flash_bwd``) beside one causal SDPA
+    forward plus backward (eager calls, CUDA events); then the ssd
+    Function's plain backward at xLSTM's shape. Appends flash's row at
+    (a)'s shape to ``rows``."""
+    s, hq, hkv, d, _ = TRAIN_FLASH["llama3-8b"]
+    q, k, v = time_train_flash(gen, rows, "train-kernels", (s, hq, hkv, d),
+                               f"train llama3-8b B=1 S={s} causal, lse")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out, lse = flash_kernel.flash_attention(q, k, v, lse=True)
     do = torch.randn_like(out)
     pos = _positions(s)
@@ -2950,6 +2972,339 @@ def phase_distributed():
     return counts
 
 
+# --------------------------------------------------------------- phase 16
+# training over a (data, model) mesh of MESH_WORLD ranks sharing the card
+# over gloo: llama3-8b at full width, MESH_LAYERS of its 32 layers (1.92 B
+# params), bf16, AdamW (TRAIN_OPT) with dots_saveable, a global batch of
+# MESH_BATCH x MESH_SEQ tokens for MESH_STEPS steps on fresh batches; the
+# same run on one rank is the reference (a)
+MESH_LAYERS, MESH_SEQ, MESH_BATCH, MESH_STEPS = 4, 2048, 2, 3
+MESH_WORLD, MESH_LAYOUT, MESH_MOVE = 4, (2, 2), (4, 1)
+MESH_CFG = dataclasses.replace(ARCHS["llama3-8b"], num_layers=MESH_LAYERS)
+# the mesh run sums the same products in other orders (TP's partial sums,
+# the gradients reduced in f32 across ranks) and rounds bf16 elsewhere:
+# each step's loss within 1e-2 and grad norm within 2e-2 relative of one
+# rank's, every leaf after the last step within ROW_RTOL[bf16] of its row
+MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-2, 2e-2
+# AdamW at lr <= 9e-5 moves a bf16 weight by less than an ulp of its row's
+# largest entry, so the row check above cannot see the update: each leaf's
+# update over the steps (the leaf minus its init) is also held to one
+# rank's, |d - d_ref| / max(|d|, |d_ref|) in the Frobenius norm. A run
+# whose update does nothing reads 1; an update step near zero gradient
+# entries takes the other sign on a last-bit difference (AdamW's step is
+# ~lr * sign(g)), which the limit leaves room for
+MESH_UPDATE_RTOL = 0.25
+MESH_SEED = 16
+# (d) the launcher on the world's host mesh
+MESH_CLI = ["--mesh", "host", "--scaled", "--layers", "2", "--steps", "5",
+            "--fixed-batch"]
+
+
+def _mesh_spec() -> dict:
+    """What a phase-16 rank needs (spawned ranks re-import this script,
+    so the parent's settings travel as arguments)."""
+    return {"device": DEVICE, "cfg": MESH_CFG, "seq": MESH_SEQ,
+            "batch": MESH_BATCH, "steps": MESH_STEPS, "layout": MESH_LAYOUT,
+            "move": MESH_MOVE, "seed": MESH_SEED, "cli": MESH_CLI}
+
+
+def _mesh_batches(model, sp: dict, shardings=None):
+    shape = ShapeConfig("mesh", sp["seq"], sp["batch"], "train")
+    return [batch_for_step(model, shape, 0, s, device=sp["device"],
+                           shardings=shardings) for s in range(sp["steps"])]
+
+
+def mesh_reference(ref_dir: str) -> tuple:
+    """(a) One rank: the steps of the mesh run on the whole batch; the
+    losses, grad norms and step times returned, the final leaves written
+    to ``ref_dir`` (a checkpoint: on the host, the card freed). Returns
+    (records, launch counts)."""
+    sp = _mesh_spec()
+    _reset_peak()
+    model, params = _init(sp["cfg"], sp["seed"], "mesh-ref",
+                          f"d_ff {sp['cfg'].d_ff}, ")
+    batches = _mesh_batches(model, sp)
+    recs, counts, _ = train_run("mesh-ref", model, params, batches)
+    log(f"[mesh-ref] peak memory {_peak() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    checkpoint.save(ref_dir, sp["steps"], params)
+    log(f"[mesh-ref] final leaves written in {time.perf_counter() - t0:.1f} "
+        f"s")
+    del params, model, batches
+    _free()
+    return recs, counts
+
+
+def _ref_leaves(ref_dir: str, step: int):
+    """(key, the reference leaf) of each leaf of the checkpoint."""
+    from repro_torch.training.checkpoint import _read_leaf
+    path = os.path.join(ref_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    for meta in leaves:
+        yield meta["key"], _read_leaf(os.path.join(path, meta["file"]),
+                                      meta["dtype"])
+
+
+def mesh_rank(rank: int, sp: dict, ref_dir: str, tmp: str, out: str) -> None:
+    """One rank of phase 16 (under ``spawn_ranks``): (b) the steps on the
+    ``sp["layout"]`` host mesh, each timed by CUDA events around a
+    synchronised step; then every leaf gathered and held (on rank 0) to
+    the reference's row by row; (c) the train state moved to the
+    ``sp["move"]`` mesh and back with ``elastic_reshard``, the params saved
+    from the mesh and restored onto the moved mesh, each against the
+    blocks it must equal; (d) the launcher on the world's host mesh. Writes
+    this rank's numbers (JSON) to ``out`` % rank."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, elastic_reshard
+    from repro_torch.distributed.sharding import gather_full
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.shardings import batch_shardings, opt_shardings
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.checkpoint import _paths
+    dev = sp["device"]
+    if dev == "cuda":
+        # four ranks share the card: segments that grow keep each rank's
+        # freed blocks reusable at other sizes
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank} finds no CUDA device")
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    global DEVICE
+    DEVICE = dev
+    mesh = make_mesh(MeshLayout(("data", "model"), sp["layout"]), dev)
+    model = build_model(sp["cfg"])
+    res = {"rank": rank, "coords": list(mesh.get_coordinate())}
+    with mesh_context(mesh):
+        ps = model.param_shardings(mesh)
+        bs = batch_shardings(model, ShapeConfig(
+            "mesh", sp["seq"], sp["batch"], "train"), mesh)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            sp["seed"]), dev, mesh)
+        batches = _mesh_batches(model, sp, bs)
+        # the init on the host, to hold each leaf's update to one rank's
+        init = tree_map(lambda t: t.to("cpu", copy=True), params)
+        opt, marks, grad_max = instrument_step(
+            model, make_optimizer(OptimizerConfig(**TRAIN_OPT)))
+        state = opt.init(params, ps)
+        step = make_train_step(model, opt, remat_policy=TRAIN_REMAT)
+        kernels.reset_launch_counts()
+        recs = []
+        for batch in batches:
+            _sync()
+            dist.barrier()
+            collectives.reset_counts()
+            t0, start = time.perf_counter(), _mark()
+            params, state, m = step(params, state, batch)
+            end = _mark()
+            _sync()
+            recs.append({"loss": m["loss"].item(),
+                         "grad_norm": m["grad_norm"].item(),
+                         "step_ms": _between(start, end),
+                         "wall_ms": (time.perf_counter() - t0) * 1e3,
+                         "collectives": collectives.counts()})
+        res["launches"] = kernels.launch_counts()
+    for rec, mk, gm in zip(recs, marks, grad_max):
+        rec["fwd_ms"] = _between(mk[0], mk[1])
+        rec["bwd_ms"] = _between(mk[1], mk[2])
+        rec["opt_ms"] = _between(mk[2], mk[3])
+        rec["zero_grad_leaves"] = int((gm == 0).sum())
+    res["steps"] = recs
+    res["peak_gib"] = _peak() / 2**30
+    del batches
+    # every leaf whole against the reference's, row by row, and its update
+    # against the reference's update
+    t0 = time.perf_counter()
+    ref = dict(_ref_leaves(ref_dir, sp["steps"])) if rank == 0 else {}
+    worst, worst_upd = (0.0, ""), (0.0, "")
+    for (key, leaf), (_, sh), (_, leaf0) in zip(_paths(params), _paths(ps),
+                                                _paths(init)):
+        full = gather_full(leaf, sh.spec, mesh)
+        full0 = gather_full(leaf0.to(dev), sh.spec, mesh)
+        if rank == 0:
+            want = ref.pop(key).to(full.device)
+            worst = max(worst, (row_err(full, want), key))
+            worst_upd = max(worst_upd, (update_err(full, want, full0), key))
+            del want
+        del full, full0
+    res["leaf_row_err"] = list(worst)
+    res["leaf_update_err"] = list(worst_upd)
+    res["compare_s"] = time.perf_counter() - t0
+    del ref, init
+    # (c) the params saved from the mesh; the train state moved to the
+    # other mesh part by part, each part's original kept on the host and
+    # freed on the card (4 ranks share it); the checkpoint restored onto
+    # the moved mesh must equal the moved params (that holds the move's
+    # layout to the checkpoint's whole leaves), the state moved back must
+    # equal the original
+    _free()
+    t0 = time.perf_counter()
+    ckpt.save(tmp, 1, params, shardings=ps)
+    res["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moved_mesh = make_mesh(MeshLayout(("data", "model"), sp["move"]), dev)
+    ps2 = model.param_shardings(moved_mesh)
+    tree = {"params": params, "mu": state["mu"], "nu": state["nu"]}
+    sh_from = {"params": ps, "mu": ps, "nu": ps}
+    sh_to = {"params": ps2, "mu": ps2, "nu": ps2}
+    del params, state, m
+    host, moved = {}, {}
+    for part in list(tree):
+        host[part] = tree_map(lambda t: t.cpu(), tree[part])
+        moved[part] = elastic_reshard(tree.pop(part), sh_from[part],
+                                      sh_to[part])
+        _free()
+    res["moved_blocks"] = [list(x.shape)
+                           for x in tree_leaves(moved["params"])][:4]
+    res["reshard_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, _ = ckpt.restore(tmp, 1, moved["params"], shardings=ps2)
+    res["restore_s"] = time.perf_counter() - t0
+    res["restore_diff"] = max(
+        (a - b).abs().max().item()
+        for a, b in zip(tree_leaves(restored), tree_leaves(moved["params"])))
+    del restored
+    diff = 0.0
+    for part in list(moved):
+        back = elastic_reshard(moved.pop(part), sh_to[part], sh_from[part])
+        diff = max([diff] + [(a.cpu() - b).abs().max().item() for a, b in
+                             zip(tree_leaves(back), tree_leaves(host[part]))])
+        del back
+        _free()
+    res["reshard_back_diff"] = diff
+    del host
+    # (d) the launcher on the world's host mesh
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(sp["cli"] + ["--device", dev])
+    res["cli_s"] = time.perf_counter() - t0
+    res["cli_out"] = buf.getvalue()
+    res["cli_launches"] = kernels.launch_counts()
+    with open(out % rank, "w") as f:
+        json.dump(res, f)
+
+
+def phase_mesh_train(shape_rows):
+    """Phase 16: (a) one rank, (b)-(d) on ``MESH_WORLD`` ranks sharing the
+    card (``mesh_rank``); the checks, and flash at a rank's shape (shape
+    row 3i). Returns the launch counts of (a) and of every rank's (b) and
+    (d)."""
+    import tempfile
+    card = _card()
+    sp = _mesh_spec()
+    cfg = sp["cfg"]
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref_recs, c = mesh_reference(os.path.join(tmp, "ref"))
+        counts.update(c)
+        log(f"[mesh] part (a) took {time.perf_counter() - t0:.1f} s on "
+            f"{card}")
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "mesh_rank%d.json")
+        spawn_ranks(mesh_rank, MESH_WORLD, sp, os.path.join(tmp, "ref"),
+                    os.path.join(tmp, "ckpt"), out)
+        recs = []
+        for r in range(MESH_WORLD):
+            with open(out % r) as f:
+                recs.append(json.load(f))
+        log(f"[mesh] parts (b)-(d) on {MESH_WORLD} ranks took "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+    r0 = recs[0]
+    for i, (ref, got) in enumerate(zip(ref_recs, r0["steps"])):
+        le = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        ge = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        log(f"[mesh] (b) step {i}: loss {got['loss']:.5f} vs one rank's "
+            f"{ref['loss']:.5f} (rel err {le:.3g}, limit {MESH_LOSS_RTOL}); "
+            f"grad norm {got['grad_norm']:.5f} vs {ref['grad_norm']:.5f} "
+            f"(rel err {ge:.3g}, limit {MESH_GNORM_RTOL}); rank 0 step "
+            f"{got['step_ms']:.1f} ms (CUDA events; forward "
+            f"{got['fwd_ms']:.1f}, backward {got['bwd_ms']:.1f}, optimizer "
+            f"{got['opt_ms']:.1f}), wall {got['wall_ms']:.1f} ms; one rank "
+            f"{ref['wall_ms']:.1f} ms")
+        if not (le <= MESH_LOSS_RTOL and ge <= MESH_GNORM_RTOL):
+            fail(f"mesh train step {i}: loss or grad norm off one rank's: "
+                 f"{got['loss']} vs {ref['loss']}, {got['grad_norm']} vs "
+                 f"{ref['grad_norm']}")
+    bad = [(rec["rank"], i) for rec in recs
+           for i, s in enumerate(rec["steps"])
+           if not (np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]))
+           or s["zero_grad_leaves"]]
+    if bad:
+        fail(f"mesh train: a non-finite loss or norm, or a leaf whose "
+             f"local gradient is all zero (rank, step): {bad}")
+    last = r0["steps"][-1]["collectives"]
+    log(f"[mesh] (b) {cfg.name} {cfg.num_layers} layers on a "
+        f"{MESH_LAYOUT} (data, model) mesh of {MESH_WORLD} ranks, global "
+        f"batch {MESH_BATCH} x {MESH_SEQ}: collectives of rank 0's last "
+        f"step (calls, MB): " + ", ".join(
+            f"{k} {v['calls']} {v['bytes'] / 1e6:.1f}"
+            for k, v in sorted(last.items()))
+        + f"; {sum(v['bytes'] for v in last.values()) / 1e9:.3f} GB in all")
+    log(f"[mesh] (b) peak memory per rank (GiB): " + ", ".join(
+        f"{rec['peak_gib']:.2f}" for rec in recs)
+        + "; step ms per rank (last step, CUDA events): " + ", ".join(
+            f"{rec['steps'][-1]['step_ms']:.1f}" for rec in recs))
+    err, key = r0["leaf_row_err"]
+    tol = ROW_RTOL[torch.bfloat16]
+    uerr, ukey = r0["leaf_update_err"]
+    log(f"[mesh] (b) leaves after step {MESH_STEPS} against one rank's: "
+        f"worst row_err {err:.3g} at {key} (limit {tol}); worst update "
+        f"error {uerr:.3g} at {ukey} (limit {MESH_UPDATE_RTOL}; no update "
+        f"reads 1); compared in {r0['compare_s']:.1f} s")
+    if not err <= tol:
+        fail(f"mesh train: leaf {key} row_err {err} > {tol}")
+    if not uerr <= MESH_UPDATE_RTOL:
+        fail(f"mesh train: leaf {ukey}'s update off one rank's: {uerr} > "
+             f"{MESH_UPDATE_RTOL}")
+    for rec in recs:
+        if not (rec["reshard_back_diff"] == 0.0
+                and rec["restore_diff"] == 0.0):
+            fail(f"mesh state move on rank {rec['rank']}: back "
+                 f"{rec['reshard_back_diff']}, restore "
+                 f"{rec['restore_diff']}")
+    log(f"[mesh] (c) elastic_reshard {MESH_LAYOUT} -> {MESH_MOVE} of the "
+        f"params and AdamW moments (rank 0's first blocks "
+        f"{r0['moved_blocks']}; {r0['reshard_s']:.1f} s) and back: diff 0 "
+        f"on every rank; params saved from the mesh in {r0['save_s']:.1f} "
+        f"s, restored onto {MESH_MOVE} in {r0['restore_s']:.1f} s: diff 0 "
+        f"from the moved params")
+    losses = [float(line.split()[3]) for line in r0["cli_out"].splitlines()
+              if line.startswith("step")]
+    log(f"[mesh] (d) launch.train {' '.join(MESH_CLI)} on {MESH_WORLD} "
+        f"ranks: losses {losses} ({r0['cli_s']:.1f} s)")
+    if len(losses) < 2 or not losses[-1] < losses[0] or any(
+            rec["cli_out"] for rec in recs[1:]):
+        fail(f"mesh launcher: losses {losses}, or a rank but 0 printed")
+    for rec in recs:
+        counts.update(rec["launches"])
+        counts.update(rec["cli_launches"])
+        if DEVICE == "cuda" and not (rec["launches"].get("flash_attention")
+                                     and rec["cli_launches"].get(
+                                         "flash_attention")):
+            fail(f"mesh train: flash never launched on rank {rec['rank']}: "
+                 f"{rec['launches']} {rec['cli_launches']}")
+    log(f"[mesh] flash launches per rank, (b) and (d): " + ", ".join(
+        f"{rec['launches'].get('flash_attention', 0)} + "
+        f"{rec['cli_launches'].get('flash_attention', 0)}" for rec in recs))
+    if DEVICE == "cuda":
+        hq = cfg.num_heads // MESH_LAYOUT[1]
+        hkv = cfg.num_kv_heads // MESH_LAYOUT[1]
+        time_train_flash(torch.Generator(device=DEVICE).manual_seed(17),
+                         shape_rows, "mesh", (MESH_SEQ, hq, hkv,
+                                              cfg.resolved_head_dim),
+                         f"mesh rank llama3-8b B=1 S={MESH_SEQ} Hq {hq} "
+                         f"Hkv {hkv} causal, lse")
+        _free()
+    return counts
+
+
 def _card() -> str:
     if DEVICE != "cuda":
         return "the CPU"
@@ -2966,8 +3321,9 @@ def main() -> None:
     phase_build()
     checked, shape_rows = phase_kernels()
     # launches summed over every serving phase's runs, phase 14's two
-    # training runs and phase 15's serve CLI (each resets the counts just
-    # before it runs and reads them just after)
+    # training runs, phase 15's serve CLI and phase 16's runs on one rank
+    # and on each rank of the mesh (each resets the counts just before it
+    # runs and reads them just after)
     launches = Counter()
     for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
                   phase_moonshot, phase_jamba, phase_danube, phase_whisper,
@@ -2976,6 +3332,7 @@ def main() -> None:
         launches.update(phase())
     launches.update(phase_train(shape_rows))
     launches.update(phase_distributed())
+    launches.update(phase_mesh_train(shape_rows))
     log(f"[launches] every serving, training and CLI phase: "
         f"{dict(launches)}")
     rows = []

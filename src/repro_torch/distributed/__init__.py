@@ -1,5 +1,6 @@
-"""Distributed support of the port: the logical-axis sharding rules and
-the ambient mesh (``sharding``), the closed-form cost model
+"""Distributed support of the port: the logical-axis sharding rules, the
+ambient mesh and a spec's blocks on a live mesh (``sharding``), mesh
+training's collectives (``collectives``), the closed-form cost model
 (``analytic_cost``) and the fault-tolerance loop. The names below load on
 first use, so that the model blocks can read the mesh context without
 pulling in the training stack that ``fault_tolerance`` imports. The HLO
@@ -10,7 +11,8 @@ _EXPORTS = {
         "ShardDegrees", "default_rules", "spec_for", "serving_shard_degrees",
         "axis_sizes", "batch_axis_names", "num_data_shards",
         "model_axis_size", "set_mesh_context", "get_mesh", "get_rules",
-        "mesh_context", "mesh_group", "mesh_index",
+        "mesh_context", "mesh_group", "mesh_index", "NamedSharding",
+        "spec_axes", "local_shard", "gather_full",
         "with_sharding_constraint")},
     **{name: "analytic_cost" for name in (
         "StepCost", "cost_for", "decode_cost", "prefill_cost", "train_cost",

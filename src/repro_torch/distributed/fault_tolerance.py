@@ -11,8 +11,10 @@ fault_tolerance``):
   * silent divergence -> a non-finite loss raises ``FloatingPointError``.
 
 ``TrainRunner`` packages the loop: a checkpoint every K steps, resume from
-the latest checkpoint, failures injected in tests via ``fail_at``. Restoring
-onto a different mesh (``elastic_reshard``) waits for the port's meshes.
+the latest checkpoint, failures injected in tests via ``fail_at``. Over a
+mesh the runner saves and restores under the train state's shardings (a
+restore under another mesh's is the elastic path), and ``elastic_reshard``
+moves a live tree from one mesh's shardings to another's.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import math
 import time
 from typing import Callable, Dict, List, Optional
 
+from repro_torch.distributed.sharding import gather_full, local_shard
+from repro_torch.models.common import tree_map
 from repro_torch.training import checkpoint as ckpt
 
 
@@ -53,12 +57,16 @@ class StepWatchdog:
         return ev
 
 
-def elastic_reshard(tree, new_shardings):
-    """Re-place a tree onto another mesh's shardings: the port has meshes
-    but no sharded parameters yet."""
-    raise NotImplementedError(
-        "elastic_reshard needs the port's parameter shardings "
-        "(ROADMAP queue 1 item 9b)")
+def elastic_reshard(tree, shardings_from, shardings_to):
+    """Re-place a live tree of rank blocks under ``shardings_from`` (a
+    ``NamedSharding`` per leaf) onto ``shardings_to``, whose mesh may have
+    another shape over the same world (a pod lost, a mesh regrouped): each
+    leaf gathered whole over the first mesh and cut to the rank's block of
+    the second, one leaf at a time. Every rank calls it."""
+    return tree_map(
+        lambda x, a, b: local_shard(gather_full(x, a.spec, a.mesh), b.spec,
+                                    b.mesh),
+        tree, shardings_from, shardings_to)
 
 
 class TrainRunner:
@@ -66,8 +74,11 @@ class TrainRunner:
 
     def __init__(self, train_step: Callable, batch_fn: Callable,
                  ckpt_dir: str, ckpt_every: int = 10,
-                 watchdog: Optional[StepWatchdog] = None):
+                 watchdog: Optional[StepWatchdog] = None, shardings=None):
+        """``shardings``: the {"params", "opt"} sharding tree where the
+        state is a mesh's blocks (checkpoints gather it whole)."""
         self.train_step = train_step
+        self.shardings = shardings
         self.batch_fn = batch_fn            # step -> batch (deterministic)
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -97,19 +108,22 @@ class TrainRunner:
             step += 1
             if step % self.ckpt_every == 0 or step == num_steps:
                 ckpt.save(self.ckpt_dir, step,
-                          {"params": params, "opt": opt_state})
+                          {"params": params, "opt": opt_state},
+                          shardings=self.shardings)
         return params, opt_state
 
     def resume(self, params_like, opt_like, *, num_steps: int, device=None,
                fail_at: Optional[int] = None):
         """Restore the latest checkpoint into trees shaped like
         ``params_like`` and ``opt_like`` (on ``device``, default each
-        leaf's) and continue (crash recovery)."""
+        leaf's; the blocks of the runner's shardings, where it has them:
+        those of another mesh restore elastically) and continue (crash
+        recovery)."""
         step = ckpt.latest_step(self.ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.ckpt_dir}")
         tree, _ = ckpt.restore(self.ckpt_dir, step,
                                {"params": params_like, "opt": opt_like},
-                               device)
+                               device, self.shardings)
         return self.run(tree["params"], tree["opt"], num_steps=num_steps,
                         start_step=step, fail_at=fail_at)

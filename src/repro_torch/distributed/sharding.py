@@ -378,6 +378,74 @@ def mesh_index(mesh, axes: Sequence[str]) -> int:
     return idx
 
 
+# ---------------------------------------------------------------------------
+# A spec on a live mesh: the rank's block of a full tensor and back
+# ---------------------------------------------------------------------------
+def spec_axes(spec: Spec, dim: int) -> Tuple[str, ...]:
+    """The mesh axes that split dimension ``dim`` of a spec (() where the
+    dimension stays whole, trailing ``None``s stripped or not)."""
+    part = spec[dim] if dim < len(spec) else None
+    if part is None:
+        return ()
+    return part if isinstance(part, tuple) else (part,)
+
+
+def _parts(mesh, axes: Sequence[str]) -> int:
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[ax] for ax in axes)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A spec on a mesh (the counterpart of ``jax.sharding.
+    NamedSharding``): a leaf under it is the rank's block, each dimension
+    that the spec splits cut into equal contiguous blocks, row-major over
+    the dimension's axes (``mesh_index``)."""
+    mesh: object
+    spec: Spec
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        return spec_axes(self.spec, dim)
+
+    def split_axes(self) -> Tuple[str, ...]:
+        """Every axis that splits some dimension, in the mesh's order."""
+        used = {ax for part in self.spec for ax in spec_axes((part,), 0)}
+        return tuple(ax for ax in axis_sizes(self.mesh) if ax in used)
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(n // _parts(self.mesh, self.axes(i))
+                     for i, n in enumerate(shape))
+
+    def full_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(n * _parts(self.mesh, self.axes(i))
+                     for i, n in enumerate(shape))
+
+
+def local_shard(x, spec: Spec, mesh):
+    """This rank's block of the full tensor ``x`` under ``spec`` (a copy, so
+    that the full tensor can be freed; ``x`` itself where no dimension is
+    split). A dimension the divisibility fallback left whole stays whole."""
+    out = x
+    for dim in range(x.dim()):
+        axes = spec_axes(spec, dim)
+        if axes:
+            n = x.shape[dim] // _parts(mesh, axes)
+            out = out.narrow(dim, mesh_index(mesh, axes) * n, n)
+    return out if out is x else out.clone()
+
+
+def gather_full(x, spec: Spec, mesh):
+    """The full tensor from each rank's block ``x`` under ``spec``: an
+    all-gather over the axes of each split dimension (the inverse of
+    ``local_shard``; a collective every rank of the mesh calls), contiguous."""
+    from repro_torch.distributed.collectives import all_gather_dim
+    for dim in range(x.dim()):
+        axes = spec_axes(spec, dim)
+        if axes:
+            x = all_gather_dim(x, mesh_group(mesh, axes), dim, "reshard")
+    return x.contiguous()
+
+
 def with_sharding_constraint(x, logical_axes):
     """``x`` unchanged: in the port a tensor is one rank's local slice and
     collectives are written out where they run, so there is no layout to

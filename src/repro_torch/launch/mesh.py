@@ -15,7 +15,9 @@ process group, which the caller initialises first (address, world size and
 rank are its own to give). Building a mesh creates its process groups, a
 collective call that every rank makes; importing this module does nothing.
 
-``spawn_ranks`` starts such a world on one host: processes made with
+``init_from_env`` joins the world a launcher such as ``torchrun``
+describes in the environment. ``spawn_ranks`` starts such a world on one
+host: processes made with
 ``spawn`` (CUDA cannot fork), which meet through a ``FileStore`` in a
 temporary directory; several of them may share one card over gloo (NCCL
 refuses two ranks on one device).
@@ -49,7 +51,7 @@ def make_mesh(layout: MeshLayout, device_type: str = "cuda"):
     ranks in order; the world must hold exactly ``layout.size`` ranks."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    world = dist.get_world_size()
+    world = dist.get_world_size() if dist.is_initialized() else 1
     if world != layout.size:
         raise ValueError(
             f"a {dict(layout.shape)} mesh needs {layout.size} ranks; the "
@@ -67,6 +69,31 @@ def make_host_mesh(device_type: str = "cuda"):
     """The host mesh over however many ranks the world holds."""
     import torch.distributed as dist
     return make_mesh(host_layout(dist.get_world_size()), device_type)
+
+
+def init_from_env(device_type: str = "cuda") -> int:
+    """Join the process group that a launcher (``torchrun``) describes in
+    the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``, ``LOCAL_RANK``) unless one is up; returns the world's
+    size (1 with no launcher). NCCL where each rank has a card of its own,
+    gloo where ranks share one (NCCL refuses two ranks on one device) or
+    run on the CPU; a CUDA rank takes card ``LOCAL_RANK`` modulo the
+    cards."""
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return 1
+    backend = "gloo"
+    if device_type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % cards)
+        if cards >= world:
+            backend = "nccl"
+    dist.init_process_group(backend)
+    return world
 
 
 def _rank_main(rank: int, fn, world: int, store: str, args: tuple) -> None:

@@ -7,11 +7,19 @@ Runs on the card (``--device cuda``, the default; the flash and ssd_scan
 kernels run every attention and SSD forward) or, with ``--device cpu``, on
 the plain PyTorch versions. ``--scaled`` takes the reduced config of the
 same family (``--layers`` sets its depth); without it the published
-config runs, cut to ``--layers`` layers when given. Only ``--mesh host``
-(one device) is ported: training over the production meshes waits for
-ROADMAP queue 1 item 9b. Fault tolerance: checkpoints every ``--ckpt-every`` steps;
-rerunning with the same ``--ckpt-dir`` resumes from the latest checkpoint
-and replays identical data (the pipeline is keyed by step).
+config runs, cut to ``--layers`` layers when given. Fault tolerance:
+checkpoints every ``--ckpt-every`` steps; rerunning with the same
+``--ckpt-dir`` resumes from the latest checkpoint and replays identical
+data (the pipeline is keyed by step).
+
+Meshes: in a process group of several ranks (started by
+``launch.mesh.spawn_ranks``, or by a launcher such as ``torchrun
+--nproc-per-node N -m repro_torch.launch.train``, whose environment
+``launch.mesh.init_from_env`` reads), ``--mesh host`` trains the dense
+attention stack over ``make_host_mesh()``: (N/2, 2) ("data", "model") from
+four ranks up, FSDP x TP under the train rules; alone, on one device.
+``--mesh single_pod`` / ``multi_pod`` need a world of 256 / 512 ranks.
+Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -24,6 +32,11 @@ import torch
 from repro_torch.configs import ARCHS, get_arch, scaled_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed.fault_tolerance import StepWatchdog, TrainRunner
+from repro_torch.distributed.sharding import DEFAULT_RULES, mesh_context
+from repro_torch.launch.mesh import (
+    init_from_env, make_host_mesh, make_production_mesh,
+)
+from repro_torch.launch.shardings import batch_shardings, opt_shardings
 from repro_torch.models import build_model
 from repro_torch.training import (
     OptimizerConfig, batch_for_step, checkpoint, make_optimizer,
@@ -57,10 +70,17 @@ def main(argv=None):
                     help="cuda (the kernels) or cpu (the plain versions)")
     args = ap.parse_args(argv)
 
+    dev = args.device
+    world = init_from_env(dev)
     if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; training "
-            "over meshes waits for ROADMAP queue 1 item 9b")
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi_pod",
+                                    device_type=dev)
+    else:
+        mesh = make_host_mesh(dev) if world > 1 else None
+    if dev == "cuda" and world > 1:
+        dev = f"cuda:{torch.cuda.current_device()}"
+    show = not torch.distributed.is_initialized() or \
+        torch.distributed.get_rank() == 0
     cfg = get_arch(args.arch)
     if args.scaled:
         over = {"num_layers": args.layers} if args.layers else {}
@@ -72,43 +92,52 @@ def main(argv=None):
     opt = make_optimizer(OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, warmup_steps=10))
 
-    dev = args.device
-    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
-                        dev)
-    opt_state = opt.init(params)
-    step_fn = make_train_step(model, opt, remat_policy=args.remat,
-                              microbatches=args.microbatches)
+    with mesh_context(mesh, DEFAULT_RULES):
+        p_sh = model.param_shardings(mesh) if mesh is not None else None
+        b_sh = batch_shardings(model, shape, mesh) if mesh is not None \
+            else None
+        params = model.init(
+            torch.Generator(device=dev).manual_seed(args.seed), dev, mesh)
+        opt_state = opt.init(params, p_sh)
+        state_sh = None if mesh is None else {
+            "params": p_sh, "opt": opt_shardings(opt_state, p_sh, mesh)}
+        step_fn = make_train_step(model, opt, remat_policy=args.remat,
+                                  microbatches=args.microbatches)
 
-    def batch_fn(step):
-        s = 0 if args.fixed_batch else step
-        return batch_for_step(model, shape, args.seed, s, device=dev)
+        def batch_fn(step):
+            s = 0 if args.fixed_batch else step
+            return batch_for_step(model, shape, args.seed, s, device=dev,
+                                  shardings=b_sh)
 
-    if args.ckpt_dir:
-        runner = TrainRunner(step_fn, batch_fn, args.ckpt_dir,
-                             ckpt_every=args.ckpt_every,
-                             watchdog=StepWatchdog())
-        start = checkpoint.latest_step(args.ckpt_dir) or 0
-        if start:
-            print(f"resuming from step {start}")
-            params, opt_state = runner.resume(params, opt_state,
-                                              num_steps=args.steps)
+        if args.ckpt_dir:
+            runner = TrainRunner(step_fn, batch_fn, args.ckpt_dir,
+                                 ckpt_every=args.ckpt_every,
+                                 watchdog=StepWatchdog(), shardings=state_sh)
+            start = checkpoint.latest_step(args.ckpt_dir) or 0
+            if start:
+                if show:
+                    print(f"resuming from step {start}")
+                params, opt_state = runner.resume(params, opt_state,
+                                                  num_steps=args.steps)
+            else:
+                params, opt_state = runner.run(params, opt_state,
+                                               num_steps=args.steps)
+            if show:
+                for m in runner.metrics_log[-5:]:
+                    print(m)
+                if runner.watchdog.events:
+                    print(f"straggler events: {len(runner.watchdog.events)}")
         else:
-            params, opt_state = runner.run(params, opt_state,
-                                           num_steps=args.steps)
-        for m in runner.metrics_log[-5:]:
-            print(m)
-        if runner.watchdog.events:
-            print(f"straggler events: {len(runner.watchdog.events)}")
-    else:
-        t0 = time.time()
-        for step in range(args.steps):
-            params, opt_state, metrics = step_fn(
-                params, opt_state, batch_fn(step))
-            if step % max(args.steps // 10, 1) == 0 or \
-                    step == args.steps - 1:
-                print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"({time.time() - t0:.1f}s)")
+            t0 = time.time()
+            for step in range(args.steps):
+                params, opt_state, metrics = step_fn(
+                    params, opt_state, batch_fn(step))
+                if show and (step % max(args.steps // 10, 1) == 0
+                             or step == args.steps - 1):
+                    print(f"step {step:5d} loss "
+                          f"{float(metrics['loss']):.4f} gnorm "
+                          f"{float(metrics['grad_norm']):.3f} "
+                          f"({time.time() - t0:.1f}s)")
     return params
 
 

@@ -23,8 +23,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.distributed.collectives import (
+    copy_to_region, fsdp_gather, reduce_from_region,
+)
 from repro_torch.distributed.sharding import (
-    axis_sizes, get_mesh, get_rules, mesh_group, mesh_index, spec_for,
+    axis_sizes, get_mesh, get_rules, mesh_group, mesh_index, spec_axes,
+    spec_for,
 )
 from repro_torch.models.attention_ops import (
     decode_attention, distributed_decode_attention,
@@ -100,7 +104,17 @@ class Attention:
         'bidirectional' flag and, for cross-attention, 'enc_out' [B, Senc,
         D]. On CUDA the attention is the hand-written flash kernel; on the
         CPU its plain version (the JAX model calls the same plain function
-        at blocks.py:115 and :123). Returns (y, cache {k, v})."""
+        at blocks.py:115 and :123). Returns (y, cache {k, v}).
+
+        ``ctx["mesh"]``: self-attention on the rank's blocks of the weights
+        (``_gathered``): q/k/v column-parallel over the heads' axes, ``wo``
+        row-parallel, its partial sums reduced over them. Each spec is read
+        as the fallback left it: heads that stay whole run on every rank,
+        with no collective. Where the query heads split and the KV heads
+        stay whole, each rank takes the KV heads its query heads read,
+        through a *copy to region* of wk/wv whose backward sums their
+        partial gradients over the heads' axes. With no mesh every
+        collective is the identity."""
         if self.cross:
             # Sq = S decoder rows against Sk = Senc encoder rows, unmasked;
             # the projections come out contiguous, as the kernel's TMA maps
@@ -112,14 +126,27 @@ class Attention:
             out = flash_attention(q, k, v, causal=False)
             y = _einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
             return y, {"k": k, "v": v}
+        mesh = ctx.get("mesh")
+        w, sp = _gathered(self, p, cfg, mesh)
+        axes = spec_axes(sp["wq"], 1)
+        kv_axes = spec_axes(sp["wk"], 1)
+        if (kv_axes and kv_axes != axes) or spec_axes(sp["wo"], 0) != axes:
+            raise ValueError(f"the heads of wq, wk/wv and wo split over "
+                             f"{axes}, {kv_axes}, {spec_axes(sp['wo'], 0)}")
+        if axes and not kv_axes:
+            heads = _kv_heads_read(cfg, w["wq"].shape[1],
+                                   mesh_index(mesh, axes))
+            w = dict(w, **{n: copy_to_region(w[n], mesh, axes)[:, heads]
+                           for n in ("wk", "wv")})
         positions = ctx["positions"]
-        q, k, v = self._qkv(p, x, cfg)
+        q, k, v = self._qkv(w, copy_to_region(x, mesh, axes), cfg)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         causal = not ctx.get("bidirectional", False)
         out = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
-        y = _einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
-        return y, {"k": k, "v": v}
+        y = reduce_from_region(_einsum("bshk,hkd->bsd", out, w["wo"]),
+                               mesh, axes)
+        return y.to(x.dtype), {"k": k, "v": v}
 
     # ------------------------------------------------ dense and ring decode
     def cache_len(self, cfg: ModelConfig, max_context: int) -> int:
@@ -241,6 +268,36 @@ class Attention:
         return out
 
 
+def _gathered(block, p, cfg: ModelConfig, mesh):
+    """(weights, specs) of a block's leaves ``p`` on ``mesh``: each spec as
+    the rules and the divisibility fallback resolve it, each weight
+    FSDP-gathered over its data axes where it is used (its tensor-parallel
+    splits stay). With no mesh: ``p``, nothing split."""
+    if mesh is None:
+        return p, dict.fromkeys(p, ())
+    rules = get_rules()
+    sp = {n: spec_for(s.logical, s.shape, mesh, rules)
+          for n, s in block.specs(cfg).items()}
+    return {n: fsdp_gather(p[n], sp[n], mesh) for n in sp}, sp
+
+
+def _kv_heads_read(cfg: ModelConfig, hq_local: int, block: int):
+    """The KV heads that query heads ``block * hq_local`` on read (GQA: head
+    h reads KV head h // (Hq / Hkv)), for a rank whose query heads are
+    split and whose KV heads are whole: a slice where the rank's query
+    heads fall into equal groups of its KV heads, else one KV head per
+    query head (a list index)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    q0 = block * hq_local
+    ids = [h // g for h in range(q0, q0 + hq_local)]
+    first, n = ids[0], ids[-1] - ids[0] + 1
+    per = hq_local // n
+    if per * n == hq_local and ids == [first + i // per
+                                       for i in range(hq_local)]:
+        return slice(first, first + n)
+    return ids
+
+
 def _kv_shard_axes(mesh, kv_shape) -> Tuple[str, ...]:
     """Which mesh axes shard the KV-cache sequence dim (flash-decode)."""
     sizes = axis_sizes(mesh) if mesh is not None else {}
@@ -333,15 +390,23 @@ class SwiGLU:
             "w_out": Spec((f, d), ("mlp", "embed"), dt, fan_in=f),
         }
 
-    def __call__(self, p, x):
-        h = _einsum("...d,df->...f", x, p["w_in"])
-        g = _einsum("...d,df->...f", x, p["w_gate"])
+    def __call__(self, p, x, mesh=None, cfg: Optional[ModelConfig] = None):
+        """``mesh`` (with the ``cfg`` whose specs give the weights' full
+        shapes): on the rank's blocks (``_gathered``), w_in/w_gate
+        column-parallel over the mlp dim's axes, w_out row-parallel with
+        its partial sums reduced over them (no collective where the
+        fallback keeps the mlp dim whole, or with no mesh)."""
+        p, sp = _gathered(self, p, cfg, mesh)
+        axes = spec_axes(sp["w_in"], 1)
+        x_in = copy_to_region(x, mesh, axes)
+        h = _einsum("...d,df->...f", x_in, p["w_in"])
+        g = _einsum("...d,df->...f", x_in, p["w_gate"])
         h = F.silu(g) * h
         # f32 weights: the f32 hidden meets w_out as in the JAX model. bf16
         # weights: the hidden is rounded to bf16 first, so the product stays
         # on the tensor cores (the JAX model widens w_out instead).
-        return _einsum("...f,fd->...d", h.to(p["w_out"].dtype),
-                       p["w_out"]).to(x.dtype)
+        y = _einsum("...f,fd->...d", h.to(p["w_out"].dtype), p["w_out"])
+        return reduce_from_region(y, mesh, axes).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,10 @@ class Spec:
     def __post_init__(self):
         assert len(self.shape) == len(self.logical), (self.shape, self.logical)
 
+    def local_shape(self, mesh, rules=None) -> Tuple[int, ...]:
+        """The shape of a rank's block of this parameter on ``mesh``."""
+        return _sharding(self, mesh, rules).local_shape(self.shape)
+
     @property
     def scale(self) -> float:
         fan = self.fan_in or (self.shape[-2] if len(self.shape) >= 2
@@ -99,6 +103,21 @@ def tree_init(specs, generator: torch.Generator, device) -> Any:
     """Materialize a Spec tree into a param tree, leaf by leaf in tree
     order from one generator."""
     return tree_map(lambda s: s.materialize(generator, device), specs)
+
+
+def _sharding(spec: Spec, mesh, rules=None):
+    from repro_torch.distributed.sharding import (
+        NamedSharding, get_rules, spec_for,
+    )
+    return NamedSharding(mesh, spec_for(spec.logical, spec.shape, mesh,
+                                        rules or get_rules()))
+
+
+def tree_shardings(specs, mesh, rules=None) -> Any:
+    """The ``NamedSharding`` of each leaf of a Spec tree on ``mesh`` under
+    ``rules`` (default: the ambient mesh context's), with the divisibility
+    fallback of ``spec_for``."""
+    return tree_map(lambda s: _sharding(s, mesh, rules), specs)
 
 
 def tree_bytes(specs) -> int:

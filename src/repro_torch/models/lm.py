@@ -22,7 +22,12 @@ A VLM (llava) is this LM with a prefix: precomputed patch embeddings
 the scaled token embeddings. Enc-dec (whisper) is ``models.encdec``.
 
 Training runs ``fwd_seq`` under a remat policy and ``loss``, a chunked
-cross-entropy (``Model.train_loss`` puts them together).
+cross-entropy (``Model.train_loss`` puts them together). Over a mesh
+(``ctx["mesh"]``, ``mesh=``) the dense attention stack trains on the rank's
+blocks of the parameters and of the batch: the embedding lookup and the
+cross-entropy are vocab-parallel, the blocks FSDP x TP
+(``blocks.Attention``, ``blocks.SwiGLU``), every collective written out in
+``distributed.collectives``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,12 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import (
+    copy_to_region, fsdp_gather, max_over, reduce_from_region, sum_over,
+)
+from repro_torch.distributed.sharding import (
+    batch_axis_names, get_rules, mesh_index, spec_axes, spec_for,
+)
 from repro_torch.kernels.paged_attention.ops import (
     paged_decode_attention, paged_prefill_attention,
 )
@@ -114,13 +125,23 @@ def _index(tree, r):
     return tree[r]
 
 
-def _ce_chunk(h, w, targets, mask):
+def _ce_chunk(mesh, axes, v0, h, w, targets, mask):
     """(sum of the masked NLL, sum of the mask) of one chunk: h [B, C, D]
-    against w [D, V], logits in f32."""
+    against the vocab columns w [D, V_l] that start at ``v0``, logits in
+    f32. Where ``axes`` split the vocabulary over ``mesh`` the max and the
+    sum of exponentials are all-reduced over them, and the target's logit
+    comes from the rank that holds it (with no axes, v0 = 0: the whole
+    vocabulary here)."""
     logits = _einsum("bcd,dv->bcv", h, w)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return ((lse - gold) * mask).sum(), mask.sum()
+    m = max_over(logits.detach().amax(dim=-1), mesh, axes, "ce_all_reduce")
+    se = reduce_from_region(torch.exp(logits - m[..., None]).sum(dim=-1),
+                            mesh, axes, "ce_all_reduce")
+    t = targets.long() - v0
+    inside = (t >= 0) & (t < logits.shape[-1])
+    gold = torch.gather(logits, -1, t.clamp(0, logits.shape[-1] - 1)[
+        ..., None])[..., 0] * inside
+    gold = reduce_from_region(gold, mesh, axes, "ce_all_reduce")
+    return ((m + torch.log(se) - gold) * mask).sum(), mask.sum()
 
 
 class LM:
@@ -156,11 +177,31 @@ class LM:
         return tree_init(self.specs(), generator, device)
 
     # --------------------------------------------------------------- embed/out
-    def embed(self, params, tokens, prefix_embeds=None):
+    def _spec(self, name: str, mesh):
+        """The spec of leaf ``name`` on ``mesh`` (nothing split with no
+        mesh)."""
+        if mesh is None:
+            return ()
+        s = self.specs()[name]
+        return spec_for(s.logical, s.shape, mesh, get_rules())
+
+    def embed(self, params, tokens, prefix_embeds=None, mesh=None):
         """tokens [B, St] (+ an optional prefix [B, P, D], cast to the
-        model's dtype) -> x [B, P + St, D]."""
-        x = params["embed"][tokens.long()].to(dtype_of(self.cfg))
-        x = x * (self.cfg.d_model ** 0.5)
+        model's dtype) -> x [B, P + St, D]. On a ``mesh`` that splits the
+        vocabulary the rank's vocab rows look up the tokens they hold,
+        zeros elsewhere, and the rows are summed over the vocab's axes."""
+        spec = self._spec("embed", mesh)
+        w = fsdp_gather(params["embed"], spec, mesh)
+        axes = spec_axes(spec, 0)
+        if axes:
+            v_l = w.shape[0]
+            t = tokens.long() - mesh_index(mesh, axes) * v_l
+            inside = (t >= 0) & (t < v_l)
+            x = reduce_from_region(
+                w[t.clamp(0, v_l - 1)] * inside[..., None], mesh, axes)
+        else:
+            x = w[tokens.long()]
+        x = x.to(dtype_of(self.cfg)) * (self.cfg.d_model ** 0.5)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         return x
@@ -176,15 +217,16 @@ class LM:
         return _einsum("bd,dv->bv", h, self._out_w(params))
 
     # ----------------------------------------------------------------- layers
-    def _ffn(self, ld: LayerDef, p, x, aux=None):
+    def _ffn(self, ld: LayerDef, p, x, aux=None, mesh=None):
         """x + the layer's FFN of x. An MoE layer appends its load-balance
         loss to the list ``aux`` where one is given (the sequence forward);
-        the decode paths give none and skip computing it."""
+        the decode paths give none and skip computing it. ``mesh``: the
+        dense FFN on the rank's blocks."""
         if ld.ffn == "none":
             return x
         h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
         if ld.ffn == "dense":
-            return x + _SWIGLU(p["ffn"], h)
+            return x + _SWIGLU(p["ffn"], h, mesh, self.cfg)
         if aux is None:
             return x + _MOE.forward(p["ffn"], h, self.cfg)[0]
         y, a = _MOE(p["ffn"], h, self.cfg)
@@ -192,25 +234,43 @@ class LM:
         return x + y
 
     # ------------------------------------------------------------- training
-    def loss(self, params, x, targets, mask, chunk: int = 512):
+    def loss(self, params, x, targets, mask, chunk: int = 512, mesh=None):
         """Mean masked next-token cross-entropy of x [B, S, D] against
         targets [B, S] (mask [B, S] f32), a scalar, as the JAX loss returns.
         Chunked over the sequence, each chunk checkpointed when autograd is
         on, so [B, S, V] logits never exist: only one chunk's [B, chunk, V]
-        at a time, forward and backward."""
+        at a time, forward and backward.
+
+        On a ``mesh`` x holds the rank's rows and the cross-entropy is
+        vocab-parallel (``_ce_chunk``); the NLL and mask sums are summed
+        over the data axes before the division, so the loss (and its
+        gradient, once the gradients are summed over those axes) is the
+        global batch's mean. A batch the fallback kept whole on some data
+        axis repeats there in both sums alike."""
         cfg = self.cfg
         s = x.shape[1]
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        w = self._out_w(params)
+        name = "embed" if cfg.tie_embeddings else "out"
+        spec = self._spec(name, mesh)
+        w = fsdp_gather(params[name], spec, mesh)
+        if cfg.tie_embeddings:
+            w = w.T
+        axes = spec_axes(spec, 0 if cfg.tie_embeddings else 1)
+        h = copy_to_region(h, mesh, axes)
+        ce = remat(functools.partial(
+            _ce_chunk, mesh, axes, mesh_index(mesh, axes) * w.shape[1]),
+            "full")
         chunk = min(chunk, s)
         while s % chunk:
             chunk -= 1
-        ce = remat(_ce_chunk, "full")
         tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, s, chunk):
             sl = slice(c0, c0 + chunk)
             nll, m = ce(h[:, sl], w, targets[:, sl], mask[:, sl])
             tot, cnt = tot + nll, cnt + m
+        data = () if mesh is None else batch_axis_names(mesh)
+        tot = reduce_from_region(tot, mesh, data, "loss_all_reduce")
+        cnt = sum_over(cnt, mesh, data, "loss_all_reduce")
         return tot / cnt.clamp_min(1.0)
 
     # ------------------------------------------------------------ seq forward
@@ -227,8 +287,13 @@ class LM:
         the JAX LM checkpoints its scan body; with a policy, a pattern of
         more than one layer also checkpoints each layer inside the repeat
         (the JAX LM's inner remat), so the backward of a repeat holds one
-        layer's activations at a time."""
+        layer's activations at a time.
+
+        ``ctx["mesh"]``: the dense attention stack over a mesh, ``params``
+        and x the rank's blocks; each weight is gathered where it is used,
+        inside the rematerialised body, so a recompute gathers again."""
         cfg = self.cfg
+        mesh = ctx.get("mesh")
         fetch = _index_fetch(params)
         inner = remat_policy not in (None, "none") and len(self.pattern) > 1
 
@@ -236,7 +301,7 @@ class LM:
             h, cache = MIXERS[ld.mixer].fwd_seq(
                 p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), ctx, cfg)
             a = []
-            x = self._ffn(ld, p, x + h, a)
+            x = self._ffn(ld, p, x + h, a, mesh)
             return x, (aux + a[0] if a else aux), cache
 
         def body(x, aux, layer_params):

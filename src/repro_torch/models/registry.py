@@ -7,12 +7,17 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import tree_map
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed.sharding import get_mesh, local_shard
+from repro_torch.models.common import Spec, tree_map, tree_shardings
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
 WHISPER_DECODER_LEN = 448   # decoder-side target length for train/prefill
+
+MESH_WAITS = ("training over a mesh covers the dense attention stack; "
+              "MoE, Mamba/xLSTM, enc-dec and VLM configs wait for ROADMAP "
+              "queue 1 item 9b'")
 
 
 class Model:
@@ -25,8 +30,35 @@ class Model:
     def specs(self):
         return self.impl.specs()
 
-    def init(self, generator: torch.Generator, device="cuda"):
-        return self.impl.init(generator, device)
+    def init(self, generator: torch.Generator, device="cuda", mesh=None):
+        """The parameters drawn from ``generator`` on ``device``. With a
+        ``mesh``, each leaf is drawn whole in the same order (so the values
+        equal one rank's ``init`` at the same seed) and only the rank's
+        block under ``param_shardings(mesh)`` is kept: the peak is one full
+        leaf."""
+        if mesh is None:
+            return self.impl.init(generator, device)
+        return tree_map(
+            lambda spec, sh: local_shard(
+                spec.materialize(generator, device), sh.spec, mesh),
+            self.specs(), self.param_shardings(mesh))
+
+    def require_mesh_path(self) -> None:
+        """Raise for a config that cannot train over a mesh yet: only the
+        dense attention stack is sharded."""
+        cfg = self.cfg
+        dense = not cfg.is_encoder_decoder and not cfg.num_image_patches \
+            and all(ld.mixer == "attn" and ld.ffn == "dense"
+                    for ld in self.impl.pattern)
+        if not dense:
+            raise NotImplementedError(f"{cfg.name}: {MESH_WAITS}")
+
+    def param_shardings(self, mesh, rules=None):
+        """The ``NamedSharding`` of every parameter on ``mesh`` under
+        ``rules`` (default: the ambient context's), the train profile's
+        FSDP x TP placement with the divisibility fallback."""
+        self.require_mesh_path()
+        return tree_shardings(self.specs(), mesh, rules)
 
     @property
     def repeats(self) -> int:
@@ -36,19 +68,26 @@ class Model:
     def train_loss(self, params, batch, remat_policy: str = "dots_saveable"):
         """The training objective of one batch (``training.batch_for_step``'s
         keys): the mean masked next-token cross-entropy plus 0.01 x the MoE
-        load-balance loss, a scalar, as the JAX facade's ``train_loss``."""
+        load-balance loss, a scalar, as the JAX facade's ``train_loss``.
+        Under a mesh (``mesh_context``) ``params`` and ``batch`` are the
+        rank's blocks and the loss is the global batch's."""
+        mesh = get_mesh()
+        if mesh is not None:
+            self.require_mesh_path()
         if self.cfg.is_encoder_decoder:
             return self.impl.loss(params, batch["frames"], batch["tokens"],
                                   batch["targets"], batch["mask"],
                                   remat_policy=remat_policy)
         x = self.impl.embed(params, batch["tokens"],
-                            batch.get("patch_embeds"))
+                            batch.get("patch_embeds"), mesh=mesh)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        x, aux, _ = self.impl.fwd_seq(params, x, {"positions": positions},
-                                      remat_policy=remat_policy)
-        loss = self.impl.loss(params, x, batch["targets"], batch["mask"])
+        x, aux, _ = self.impl.fwd_seq(
+            params, x, {"positions": positions, "mesh": mesh},
+            remat_policy=remat_policy)
+        loss = self.impl.loss(params, x, batch["targets"], batch["mask"],
+                              mesh=mesh)
         return loss + 0.01 * aux
 
     # ---------------------------------------------------------------- serving
@@ -73,6 +112,17 @@ class Model:
 
     def init_decode_state(self, batch: int, max_context: int, device="cuda"):
         return self.impl.init_decode_state(batch, max_context, device)
+
+    # ------------------------------------------------------------ input specs
+    def input_spec_tree(self, shape: ShapeConfig):
+        """Spec tree of a train batch of the dense LM (the configs that
+        train over a mesh; enc-dec and VLM inputs wait for ROADMAP 9b'):
+        the batch dim is logical "batch" (``launch.shardings.
+        batch_shardings`` splits it over the data axes)."""
+        b, s = shape.global_batch, shape.seq_len
+        tok = Spec((b, s), ("batch", None), torch.int32, "zeros")
+        return {"tokens": tok, "targets": tok,
+                "mask": Spec((b, s), ("batch", None), torch.float32, "ones")}
 
     @staticmethod
     def insert_slot(state, slot: int, new_state):

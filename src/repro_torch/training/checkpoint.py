@@ -11,8 +11,13 @@ under a '<V2' header, with dtype "bfloat16" in the manifest. It is read
 back by the manifest's dtype, the raw payload viewed as ``torch.bfloat16``
 (no ``ml_dtypes`` needed). The reference's own ``restore`` cannot read such
 a leaf (``jax.numpy.asarray`` refuses '|V2'; ROADMAP queue 3). ``restore``
-places each leaf on ``device`` (default: the target leaf's device), where
-the reference takes a tree of shardings.
+places each leaf on ``device`` (default: the target leaf's device).
+
+Over a mesh (``shardings``: a ``NamedSharding`` per leaf, the tree the
+rank's blocks) ``save`` gathers each leaf whole, one at a time, and rank 0
+alone writes: the files are those a one-rank save of the same values
+writes. ``restore`` with shardings (of this mesh or of another: the elastic
+path) reads each leaf whole and keeps the rank's block.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import gather_full, local_shard
 
 _BF16_DESCR = "<V2"
 
@@ -73,22 +81,37 @@ def _read_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None) -> str:
+def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None,
+         shardings=None) -> str:
+    """Write ``tree`` as step ``step``. With ``shardings`` every rank of
+    the mesh calls this (the gathers are collectives); rank 0 writes, and
+    no rank returns before the step is in place."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = path + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
+    writer = shardings is None or dist.get_rank() == 0
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
-    for i, (key, leaf) in enumerate(_paths(tree)):
+    sh = [None] * len(_paths(tree)) if shardings is None else \
+        [s for _, s in _paths(shardings)]
+    for i, ((key, leaf), s) in enumerate(zip(_paths(tree), sh)):
+        if s is not None:
+            leaf = gather_full(leaf, s.spec, s.mesh)
+        if not writer:
+            continue
         fname = f"leaf_{i:05d}.npy"
         shape, dtype = _write_leaf(os.path.join(tmp, fname), leaf)
         manifest["leaves"].append(
             {"key": key, "file": fname, "shape": shape, "dtype": dtype})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(path):      # atomic-ish replace
-        shutil.rmtree(path)
-    os.rename(tmp, path)
-    _gc(ckpt_dir, keep=3)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(path):      # atomic-ish replace
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        _gc(ckpt_dir, keep=3)
+    if shardings is not None:
+        dist.barrier()
     return path
 
 
@@ -100,19 +123,24 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target_tree,
-            device=None) -> Tuple[Any, Dict]:
+def restore(ckpt_dir: str, step: int, target_tree, device=None,
+            shardings=None) -> Tuple[Any, Dict]:
     """Rebuild ``target_tree``'s structure (a tree of tensors) from disk,
     each leaf with the stored dtype and the target leaf's shape, on
-    ``device`` (default: the target leaf's). Returns (tree, extra)."""
+    ``device`` (default: the target leaf's). With ``shardings`` (same
+    structure) the target holds the rank's blocks under them: each leaf is
+    read whole and cut to the block. Returns (tree, extra)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+    sh = {} if shardings is None else dict(_paths(shardings))
 
     def load(key, like):
         meta = by_key[key]
         t = _read_leaf(os.path.join(path, meta["file"]), meta["dtype"])
+        if key in sh:
+            t = local_shard(t, sh[key].spec, sh[key].mesh)
         assert list(t.shape) == list(like.shape), (key, t.shape, like.shape)
         return t.to(like.device if device is None else device)
     return _map_paths(load, target_tree), manifest["extra"]

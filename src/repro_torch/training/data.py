@@ -7,7 +7,9 @@ token LM batches and stub-modality batches (frames for an enc-dec model,
 patch embeddings for a VLM). The draws come from a ``torch.Generator``
 seeded from both numbers; the JAX package's draws cannot be reproduced
 here, so the keys, shapes, dtypes and masks match its batches, not the
-values.
+values. Over a mesh each rank keeps its block of the global batch (its
+rows over the data axes, ``launch.shardings.batch_shardings``), so the
+data stays keyed by (seed, step) whatever the mesh.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed.sharding import local_shard
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import WHISPER_DECODER_LEN, Model
 
@@ -27,10 +30,11 @@ def _generator(seed: int, step: int) -> torch.Generator:
 
 
 def batch_for_step(model: Model, shape: ShapeConfig, seed: int, step: int,
-                   batch_override: int = 0,
-                   device="cuda") -> Dict[str, torch.Tensor]:
+                   batch_override: int = 0, device="cuda",
+                   shardings=None) -> Dict[str, torch.Tensor]:
     """Synthetic training batch for (arch x shape) at a given step, drawn
-    on the CPU and moved to ``device``."""
+    on the CPU and moved to ``device``; with ``shardings`` (a
+    ``NamedSharding`` per key) only the rank's block of each."""
     cfg = model.cfg
     b = batch_override or shape.global_batch
     gen = _generator(seed, step)
@@ -64,4 +68,7 @@ def batch_for_step(model: Model, shape: ShapeConfig, seed: int, step: int,
         mask = torch.ones((b, s), dtype=torch.float32)
         mask[:, :s - s_text] = 0.0     # no loss on the image-prefix positions
         out["mask"] = mask
+    if shardings is not None:
+        out = {k: local_shard(v, shardings[k].spec, shardings[k].mesh)
+               for k, v in out.items()}
     return {k: v.contiguous().to(device) for k, v in out.items()}

@@ -547,3 +547,89 @@ def test_distributed_phase_shapes_are_llama3_8b():
     half = cache // chip_smoke.DIST_WORLD
     assert len(slots) == b and max(slots) < cache
     assert {s // half for s in slots} == set(range(chip_smoke.DIST_WORLD))
+
+
+@pytest.fixture
+def mesh_on_cpu(monkeypatch):
+    """Phase 16 at a small width on the CPU: the scaled llama (2 layers,
+    bf16), a global batch of 2 x 32."""
+    cfg = dataclasses.replace(scaled_config(ARCHS["llama3-8b"],
+                                            num_layers=2), dtype="bfloat16")
+    for name, value in (("DEVICE", "cpu"), ("MESH_CFG", cfg),
+                        ("MESH_SEQ", 32)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_mesh_train_phase_runs(mesh_on_cpu, capsys):
+    """Phase 16 on 4 gloo ranks on the CPU: (a)-(d) pass their checks and
+    print the step times, collectives by kind, peak memory, the worst
+    leaf, the moves' diffs and the launcher's falling loss."""
+    counts = chip_smoke.phase_mesh_train([])
+    assert counts["flash_attention"] == 0          # the plain versions
+    out = capsys.readouterr().out
+    steps = [x for x in out.splitlines() if x.startswith("[mesh] (b) step")]
+    assert len(steps) == chip_smoke.MESH_STEPS
+    for line in steps:
+        le = float(line.split("rel err ")[1].split(",")[0])
+        assert le <= chip_smoke.MESH_LOSS_RTOL
+    coll = next(x for x in out.splitlines()
+                if "collectives of rank 0's last step" in x)
+    for kind in ("fsdp_all_gather", "fsdp_reduce_scatter", "tp_all_reduce",
+                 "ce_all_reduce", "grad_all_reduce"):
+        assert kind in coll
+    assert "peak memory per rank" in out and "worst row_err" in out
+    assert "worst update error" in out
+    assert "and back: diff 0 on every rank" in out
+    cli = next(x for x in out.splitlines() if x.startswith("[mesh] (d)"))
+    losses = [float(v) for v in cli.split("losses [")[1].split("]")[0]
+              .split(",")]
+    assert len(losses) == 5 and losses[-1] < losses[0]
+    assert "parts (b)-(d) on 4 ranks took" in out
+
+
+def test_mesh_train_phase_sees_a_wrong_rank(mesh_on_cpu, monkeypatch):
+    """A mesh run that departs from one rank's fails the phase: here the
+    one-rank reference steps at another learning rate (the spawned ranks
+    import the script afresh and keep TRAIN_OPT), so their second step's
+    loss differs."""
+    monkeypatch.setattr(chip_smoke, "TRAIN_OPT",
+                        dict(learning_rate=0.3, warmup_steps=1))
+    with pytest.raises(SystemExit, match="loss or grad norm off one rank"):
+        chip_smoke.phase_mesh_train([])
+
+
+def test_mesh_train_phase_sees_an_update_that_does_nothing(mesh_on_cpu,
+                                                           monkeypatch,
+                                                           capsys):
+    """At AdamW's small first steps the losses, grad norms and leaves of a
+    run that does not update stay within their limits of one that does;
+    the update check does not: here the one-rank reference steps at
+    learning rate 0 and its update reads 1."""
+    monkeypatch.setattr(chip_smoke, "TRAIN_OPT",
+                        dict(learning_rate=0.0, warmup_steps=1))
+    with pytest.raises(SystemExit, match="update off one rank's: 1.0 >"):
+        chip_smoke.phase_mesh_train([])
+    out = capsys.readouterr().out
+    steps = [x for x in out.splitlines() if x.startswith("[mesh] (b) step")]
+    assert len(steps) == chip_smoke.MESH_STEPS
+    worst = next(x for x in out.splitlines() if "worst row_err" in x)
+    assert float(worst.split("worst row_err ")[1].split()[0]) <= \
+        chip_smoke.ROW_RTOL[torch.bfloat16]
+
+
+def test_mesh_train_phase_is_llama3_8b_cut_in_depth():
+    """Phase 16 trains llama3-8b at full width, 4 of its 32 layers (1.92 B
+    params), on a (2, 2) mesh: every rank takes 16 query heads and 4 KV
+    heads, the flash shape row 3i."""
+    cfg = chip_smoke.MESH_CFG
+    full = ARCHS["llama3-8b"]
+    assert dataclasses.replace(cfg, num_layers=full.num_layers) == full
+    assert cfg.num_layers == 4
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    n = sum(int(np.prod(s.shape))
+            for s in tree_leaves(build_model(cfg).specs()))
+    assert round(n / 1e9, 2) == 1.92
+    assert chip_smoke.MESH_LAYOUT == (2, 2) and chip_smoke.MESH_WORLD == 4
+    assert (cfg.num_heads // 2, cfg.num_kv_heads // 2) == (16, 4)
+    assert (chip_smoke.MESH_BATCH, chip_smoke.MESH_SEQ) == (2, 2048)

@@ -17,6 +17,9 @@ FIRST = ["repro_torch.kernels", "repro_torch.models", "repro_torch.core",
          "repro_torch.training", "repro_torch.distributed",
          "repro_torch.distributed.sharding",
          "repro_torch.distributed.analytic_cost",
+         "repro_torch.distributed.collectives",
+         "repro_torch.distributed.fault_tolerance",
+         "repro_torch.launch.shardings",
          "repro_torch.models.attention_ops", "repro_torch.models.blocks",
          "repro_torch.serving.perf_model", "repro_torch.launch",
          "repro_torch.launch.mesh", "repro_torch.launch.serve",

@@ -35,6 +35,7 @@ from repro_torch.distributed import (  # noqa: E402
     StepWatchdog, TrainRunner, elastic_reshard,
 )
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import host_layout  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     build_model, opt_state_from_jax, params_from_jax,
 )
@@ -270,8 +271,20 @@ def test_step_watchdog_flags_slow_steps():
 
 
 def test_elastic_reshard_waits_for_meshes():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        elastic_reshard({}, {})
+    """Meshes of MoE configs wait for ROADMAP 9b': their shardings, which
+    ``elastic_reshard`` moves a tree between, are refused; the dense
+    stack's move on a one-rank world is the identity."""
+    moe = build_model(tcfgs.scaled_config(
+        tcfgs.ARCHS["moonshot-v1-16b-a3b"], num_layers=2))
+    with pytest.raises(NotImplementedError, match="9b'"):
+        moe.param_shardings(host_layout(1))
+    tm = build_model(tcfgs.scaled_config(tcfgs.ARCHS["llama3-8b"],
+                                         num_layers=2))
+    sh = tm.param_shardings(host_layout(1))
+    params = tm.init(torch.Generator().manual_seed(0), "cpu")
+    moved = elastic_reshard(params, sh, sh)
+    assert all(a is b for a, b in zip(tree_leaves(moved),
+                                      tree_leaves(params)))
 
 
 # ---------------------------------------------------------------- launch
@@ -297,7 +310,11 @@ def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("mesh", ["single_pod", "multi_pod"])
 def test_launch_train_production_meshes_raise(mesh):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The production meshes need their 256 / 512 ranks; a world of one
+    has 1."""
+    ranks = 512 if mesh == "multi_pod" else 256
+    with pytest.raises(ValueError, match=f"needs {ranks} ranks; the world "
+                       "holds 1"):
         launch_train.main(["--device", "cpu", "--mesh", mesh])
 
 
