@@ -139,15 +139,33 @@ no CUDA device or any phase fails. Phases:
    against the same step on one rank: the output and the ranks' cache
    slices put together. Each part's seconds beside the card's name and
    power limit.
-16. the kernels line (JSON; launches summed over phases 3-15; each kernel's
-   ``shapes`` lists phase 2's timed shape rows and phase 14's flash row)
-   and, last, the result line (JSON).
+16. mesh training: llama3-8b at full width cut to 4 layers, bf16, AdamW,
+   3 steps of 2 x 2048 tokens on one rank, then on a (2, 2) mesh of 4
+   gloo ranks sharing the card, held to it step by step and leaf by leaf
+   (values and updates); the state moved to (4, 1) and back, a mesh
+   checkpoint restored onto (4, 1); the launcher with ``--mesh host``.
+17. mesh training of the MoE and SSM stacks on the same mesh, each held
+   to one rank: moonshot-v1-16b-a3b (2 of 48 layers: experts over
+   "model", one MoE group per data rank), jamba-v0.1-52b's layer 0
+   (Mamba heads-parallel) and xlstm-1.3b (8 of 48 layers: mLSTM and
+   sLSTM heads-parallel). (a) one layer of each kind on the mesh against
+   one rank (row by row), the MoE's slot/disp bitwise against one rank's
+   route on each group's tokens, at the training batch and at a
+   decode-scale one (one group over both data ranks: the count
+   exchange); (b) 3 steps against one rank (loss, grad norm, leaves and
+   their updates); (c) step times (forward, backward, optimizer),
+   collectives by kind, peak memory and flash/ssd_scan launches a rank.
+   Phase 2 holds flash and ssd_scan at the ranks' shapes.
+18. the kernels line (JSON; launches summed over phases 3-17; each kernel's
+   ``shapes`` lists phase 2's timed shape rows and phases 14 and 16's
+   flash rows) and, last, the result line (JSON).
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -205,6 +223,7 @@ from repro_torch.models.attention_ops import (  # noqa: E402
 from repro_torch.models.blocks import (  # noqa: E402
     Attention, decode_cache_slices, decode_layout,
 )
+from repro_torch.models.lm import MIXERS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
@@ -743,6 +762,7 @@ def phase_kernels():
     check_prefill(gen, rows)
     check_flash(gen, rows)
     check_ssd(gen, rows)
+    check_ssd_rank_shapes(gen, rows)
     for shape in SHAPES:
         check_shape(gen, rows, shape)
     for shape in FLASH_SHAPES:
@@ -751,6 +771,7 @@ def phase_kernels():
     timing["ssd_scan"] = time_ssd(gen)
     shape_rows = [row for shape in SHAPES for row in time_shape(gen, shape)]
     shape_rows += [time_flash_shape(gen, shape) for shape in FLASH_SHAPES]
+    shape_rows += time_ssd_rank_shapes(gen)
     return ({name: (max(errs), timing[name]) for name, errs in rows.items()},
             shape_rows)
 
@@ -915,6 +936,9 @@ FLASH_SHAPES = {
     "whisper_engine_decoder": (1, 416, 416, 16, 16, 64, True),
     "whisper_engine_cross": (1, 416, 32, 16, 16, 64, False),
     "llava_prefix": (1, 3392, 3392, 56, 8, 128, True),
+    # phase 17's moonshot attention on a rank of the (2, 2) mesh: 8 of its
+    # 16 heads (G = 1), one 2048-token row
+    "moonshot_mesh_rank": (1, 2048, 2048, 8, 8, 128, True),
 }
 
 
@@ -996,6 +1020,56 @@ def ssd_inputs(gen, b, t, h, dk, dv, mlstm: bool):
 
 def _rel(out, ref) -> float:
     return _err(out, ref) / max(1.0, ref.abs().max().item())
+
+
+# phase 17's ssd_scan shapes on a rank of the (2, 2) mesh: (b, T, H, dk,
+# dv, mLSTM): jamba's Mamba (64 of its 128 heads, one 2048-token row) and
+# xlstm's mLSTM (2 of its 4 heads, one 512-token row)
+SSD_RANK_SHAPES = {"jamba_mesh_rank": (1, 2048, 64, 16, 64, False),
+                   "xlstm_mesh_rank": (1, 512, 2, 512, 513, True)}
+
+
+def check_ssd_rank_shapes(gen, rows):
+    """ssd_scan at ``SSD_RANK_SHAPES`` against its plain version: y and the
+    final state within SSD_RTOL * max(1, max|plain|), and y row by row (dv)
+    within ROW_RTOL of its bf16 inputs."""
+    tol = ROW_RTOL[torch.bfloat16]
+    for name, (b, t, h, dk, dv, mlstm) in SSD_RANK_SHAPES.items():
+        q, k, v, la = ssd_inputs(gen, b, t, h, dk, dv, mlstm)
+        y, f = ssd_ops.ssd_scan(q, k, v, la)
+        ry, rf = ssd_scan_ref(q, k, v, la)
+        torch.cuda.synchronize()
+        ey, ef, r = _rel(y, ry), _rel(f, rf), row_err(y, ry)
+        rows["ssd_scan"] += [_err(y, ry), _err(f, rf)]
+        log(f"[kernels] ssd_scan {name} B={b} T={t} H={h} dk={dk} dv={dv}: "
+            f"y rel err {ey:.3g}, final state rel err {ef:.3g} (limit "
+            f"{SSD_RTOL}), y row_err {r:.3g} (limit {tol})")
+        if not (ey <= SSD_RTOL and ef <= SSD_RTOL and r <= tol):
+            fail(f"ssd_scan {name}: {ey}, {ef} > {SSD_RTOL} or row_err "
+                 f"{r} > {tol}")
+
+
+def time_ssd_rank_shapes(gen):
+    """ssd_scan at ``SSD_RANK_SHAPES`` in turns with its plain version,
+    beside its bound; no library call computes it. Returns the kernels
+    line's shape rows."""
+    out = []
+    for name, (b, t, h, dk, dv, mlstm) in SSD_RANK_SHAPES.items():
+        q, k, v, la = ssd_inputs(gen, b, t, h, dk, dv, mlstm)
+        ms, turns = time_turns({
+            "kernel": lambda: ssd_ops.ssd_scan(q, k, v, la),
+            "plain": lambda: ssd_scan_ref(q, k, v, la)}, {"kernel": 50,
+                                                          "plain": 10})
+        bms, by = bound(*ssd_work(b, t, h, dk, dv))
+        log(f"[kernels] time ssd_scan at {name} (B={b} T={t} H={h} dk={dk} "
+            f"dv={dv}): {ms['kernel']:.4f} ms (turns "
+            f"{_fmt(turns['kernel'])}), plain {ms['plain']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), {bms / ms['kernel']:.3f} of it, library "
+            f"none")
+        out.append(_shape_row("ssd_scan", f"{name} B={b} T={t} H={h} "
+                              f"dk={dk} dv={dv}", ms["kernel"], ms["plain"],
+                              bms, by, None))
+    return out
 
 
 def check_ssd(gen, rows):
@@ -2994,6 +3068,14 @@ MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-2, 2e-2
 # entries takes the other sign on a last-bit difference (AdamW's step is
 # ~lr * sign(g)), which the limit leaves room for
 MESH_UPDATE_RTOL = 0.25
+# phase 17: a leaf drawn at zero or at a tenth of the normal scale (the
+# biases and gates, the sLSTM recurrence, the Mamba conv) is mostly its
+# update after 3 steps, so its row check reads the sign of AdamW's ~lr *
+# sign(g) steps at gradient entries near zero, noise (the control run
+# prints its size). Such leaves are held row by row at their gradients in
+# (a), where the mesh and one rank see the same input; after the steps,
+# by the update check alone
+SMALL_INITS = ("zeros", "small_normal")
 MESH_SEED = 16
 # (d) the launcher on the world's host mesh
 MESH_CLI = ["--mesh", "host", "--scaled", "--layers", "2", "--steps", "5",
@@ -3305,6 +3387,543 @@ def phase_mesh_train(shape_rows):
     return counts
 
 
+# --------------------------------------------------------------- phase 17
+# training of the MoE and SSM stacks over phase 16's (2, 2) mesh of
+# MESH_WORLD ranks sharing the card (gloo), at full width, bf16, AdamW
+# (TRAIN_OPT), MESH_STEPS steps on fresh batches against the same run on
+# one rank. name -> (config cut in depth, global batch, tokens a row,
+# remat): moonshot-v1-16b-a3b at 2 of 48 layers (1.81 B params; each data
+# rank's 2048 tokens route as a group of their own, the JAX block's g = 2);
+# jamba-v0.1-52b's layer 0 (Mamba and a dense FFN; 0.81 B: a cut with an
+# MoE layer adds 2.82 B params a layer and does not fit 4 ranks and a
+# one-rank reference on one card); xlstm-1.3b at 8 of 48 layers (7 mLSTM
+# and its sLSTM; 0.35 B), no remat (phase 14's (c): nested checkpoints run
+# the sLSTM loop up to four times a step)
+MOE_SSM_RUNS = {
+    "moonshot": (dataclasses.replace(ARCHS["moonshot-v1-16b-a3b"],
+                                     num_layers=2), 2, 2048, TRAIN_REMAT),
+    "jamba": (dataclasses.replace(ARCHS["jamba-v0.1-52b"], num_layers=1),
+              2, 2048, TRAIN_REMAT),
+    "xlstm": (dataclasses.replace(ARCHS["xlstm-1.3b"], num_layers=8), 2,
+              512, "none"),
+}
+# (a)'s MoE drop pattern also at a decode-scale batch: 2 x 32 tokens
+# (64 x 6 <= 8 x 64 experts: one group over both data ranks, through the
+# count exchange)
+MOE_DECODE_BATCH = (2, 32)
+MOE_SSM_SEED = 18
+
+
+def _moe_ssm_spec() -> dict:
+    """What a phase-17 rank needs (the parent's settings travel as
+    arguments)."""
+    return {"device": DEVICE, "runs": MOE_SSM_RUNS, "steps": MESH_STEPS,
+            "layout": MESH_LAYOUT, "seed": MOE_SSM_SEED,
+            "decode_batch": MOE_DECODE_BATCH}
+
+
+def _moe_groups(cfg, tokens: int, shards: int) -> int:
+    """The JAX MoE block's group count of ``tokens`` on ``shards`` data
+    shards: 1 where t * k <= 8 E, else gcd(t, shards)."""
+    m = cfg.moe
+    if tokens * m.top_k <= 8 * m.num_experts:
+        return 1
+    return math.gcd(tokens, shards)
+
+
+def _layer_checks(name: str, model, sp: dict):
+    """(a)'s layer checks of run ``name``: (tag, pattern position, batch,
+    tokens a row). The MoE at the training batch and at the decode-scale
+    one; the Mamba layer; an mLSTM and the sLSTM layer."""
+    _, b, s, _ = sp["runs"][name]
+    out = []
+    for pos, ld in enumerate(model.impl.pattern):
+        if ld.ffn == "moe" and pos == 0:
+            out += [("moe_train", pos, b, s),
+                    ("moe_decode", pos) + tuple(sp["decode_batch"])]
+        if ld.mixer in ("mamba", "slstm") or (ld.mixer == "mlstm"
+                                              and pos == 0):
+            out.append((ld.mixer, pos, b, s))
+    return out
+
+
+def _layer_input(cfg, seed: int, tag: str, b: int, s: int, dev):
+    """The layer check's input [b, s, d] (bf16), the same on every rank
+    and on one rank: a generator seeded by the run's seed and the tag."""
+    gen = torch.Generator(device=dev).manual_seed(
+        seed * 1000 + sum(map(ord, tag)))
+    return torch.randn(b, s, cfg.d_model, generator=gen, device=dev,
+                       dtype=torch.float32).to(dtype_of(cfg))
+
+
+def _layer_ref(cfg, model, params, check, seed: int, shards: int) -> dict:
+    """One rank's result of a layer check: a mixer's output and the
+    gradients of its leaves under the output gradient ``dy`` (seeded as the
+    input), or the MoE's
+    output with each group's route (the JAX block's groups of the mesh's
+    ``shards`` data shards, ``route`` on each group's tokens), its slot,
+    disp (tokens in the global numbering) and drops, and the drops of one
+    group over every token."""
+    tag, pos, b, s = check
+    x = _layer_input(cfg, seed, tag, b, s, DEVICE)
+    ld = model.impl.pattern[pos]
+    with torch.no_grad():
+        if not tag.startswith("moe"):
+            p = {k: v.detach().requires_grad_()
+                 for k, v in _layer(params, pos, "mixer").items()}
+            positions = torch.arange(s, device=DEVICE)[None].expand(b, s)
+            with torch.enable_grad():
+                y, _ = MIXERS[ld.mixer].fwd_seq(
+                    p, x, {"positions": positions}, cfg)
+                dy = _layer_input(cfg, seed, f"{tag} dy", b, s, DEVICE)
+                grads = torch.autograd.grad((y.float() * dy.float()).sum(),
+                                            list(p.values()))
+            return {"y": y.detach().cpu(),
+                    "grads": {k: g.cpu() for k, g in zip(p, grads)}}
+        p = _layer(params, pos, "ffn")
+        moe = MoE()
+        xf = x.reshape(b * s, -1)
+        t = b * s
+        g = _moe_groups(cfg, t, shards)
+        tg = t // g
+        slots, disps, ys, drops = [], [], [], 0
+        for i in range(g):
+            xg = xf[i * tg:(i + 1) * tg]
+            _, _, disp, _, slot, cap = moe.route(p, xg, cfg)
+            slots.append(slot)
+            disps.append(torch.where(disp < tg, disp + i * tg, t))
+            drops += int((slot == cfg.moe.num_experts * cap).sum())
+            ys.append(moe.forward(p, xg, cfg)[0])
+        one = moe.route(p, xf, cfg)
+        return {"y": torch.cat(ys).view(b, s, -1).cpu(), "groups": g,
+                "slot": torch.cat(slots).cpu(),
+                "disp": torch.stack(disps).cpu(), "drops": drops,
+                "drops_one_group": int(
+                    (one[4] == cfg.moe.num_experts * one[5]).sum())}
+
+
+def _moe_step0_drops(cfg, model, params, batch, shards: int):
+    """(assignments, dropped in the mesh's groups, dropped in one group of
+    every token) of the first MoE layer at the first step's input: its
+    parameters and input recorded from one no-grad ``train_loss`` of the
+    model itself (the MoE's ``forward`` wrapped on the instance the LM
+    calls)."""
+    from repro_torch.models import lm
+    first = []
+
+    def record(p, x, cfg_, mesh=None):
+        if not first:
+            first.append((p, x.reshape(-1, x.shape[-1])))
+        return MoE.forward(lm._MOE, p, x, cfg_, mesh)
+    lm._MOE.forward = record
+    try:
+        with torch.no_grad():
+            model.train_loss(params, batch)
+    finally:
+        del lm._MOE.forward
+    (p, xf), moe = first[0], MoE()
+    t = xf.shape[0]
+    g = _moe_groups(cfg, t, shards)
+
+    def drops(groups):
+        n = 0
+        with torch.no_grad():
+            for i in range(groups):
+                part = xf[i * t // groups:(i + 1) * t // groups]
+                _, _, _, _, slot, cap = moe.route(p, part, cfg)
+                n += int((slot == cfg.moe.num_experts * cap).sum())
+        return n
+    return t * cfg.moe.top_k, drops(g), drops(1)
+
+
+def _control(name, cfg, sp, ref_dir, batches, remat) -> None:
+    """The noise of (b)'s leaf row checks: the run's steps again on one
+    rank with every weight scaled by 1 +- 2^-8 (random signs; a bf16 weight
+    moves by about one unit in its last place, as the mesh's other
+    rounding moves its activations), its leaves held to the reference's
+    by ``row_err``; printed."""
+    from repro_torch.training.checkpoint import _paths
+    model, params = _init(cfg, sp["seed"], f"moe-ssm-ctl {name}", "")
+    gen = torch.Generator(device=DEVICE).manual_seed(sp["seed"] + 1)
+    for leaf in tree_leaves(params):
+        sign = torch.randint(0, 2, leaf.shape, generator=gen,
+                             device=DEVICE) * 2 - 1
+        leaf.copy_(leaf.float() * (1 + sign * 2.0 ** -8))
+    train_run(f"moe-ssm-ctl {name}", model, params, batches, remat=remat)
+    ref = dict(_ref_leaves(os.path.join(ref_dir, name), sp["steps"]))
+    worst = {False: (0.0, ""), True: (0.0, "")}
+    for (key, leaf), (_, spec) in zip(_paths(params), _paths(model.specs())):
+        small = spec.init in SMALL_INITS
+        worst[small] = max(worst[small], (row_err(
+            leaf, ref.pop(key).to(leaf.device)), key))
+    log(f"[moe-ssm] (b) {name} control, one rank with its weights moved by "
+        f"a bf16 last bit against one rank, after step {sp['steps']}: "
+        f"worst row_err {worst[False][0]:.3g} at {worst[False][1]}; the "
+        f"leaves drawn at zero or a tenth of the scale {worst[True][0]:.3g} "
+        f"at {worst[True][1] or 'none'}")
+    del params, model, ref
+    _free()
+
+
+def moe_ssm_reference(name: str, ref_dir: str, sp: dict) -> tuple:
+    """(a) and (b) of run ``name`` on one rank: the layer checks' results
+    (saved to ``ref_dir``/name_layers.pt), then the steps; the final leaves
+    written to ``ref_dir``/name (a checkpoint: on the host, the card
+    freed); then ``_control``. Returns (records, launch counts, layer
+    results)."""
+    cfg, b, s, remat = sp["runs"][name]
+    _reset_peak()
+    model, params = _init(cfg, sp["seed"], f"moe-ssm-ref {name}",
+                          f"d_ff {cfg.d_ff}, ")
+    layers = {check[0]: _layer_ref(cfg, model, params, check, sp["seed"],
+                                   sp["layout"][0])
+              for check in _layer_checks(name, model, sp)}
+    torch.save(layers, os.path.join(ref_dir, f"{name}_layers.pt"))
+    batches = _mesh_batches(model, {"device": DEVICE, "seq": s, "batch": b,
+                                    "steps": sp["steps"]})
+    if any(ld.ffn == "moe" for ld in model.impl.pattern):
+        n, mesh_drops, one_drops = _moe_step0_drops(
+            cfg, model, params, batches[0], sp["layout"][0])
+        log(f"[moe-ssm-ref {name}] step 0's first MoE layer: of {n} "
+            f"assignments the mesh's groups drop {mesh_drops}, one group of "
+            f"all {b * s} tokens (one rank's) {one_drops}")
+    recs, counts, _ = train_run(f"moe-ssm-ref {name}", model, params,
+                                batches, remat=remat)
+    log(f"[moe-ssm-ref {name}] peak memory {_peak() / 2**30:.2f} GiB")
+    checkpoint.save(os.path.join(ref_dir, name), sp["steps"], params)
+    del params, model
+    _free()
+    _control(name, cfg, sp, ref_dir, batches, remat)
+    del batches
+    return recs, counts, layers
+
+
+def _mesh_layer(cfg, model, params, ps, check, sp, mesh, ref):
+    """A layer check on the mesh, on this data rank's rows: the output
+    (gathered over the data axis); for a mixer the gradients of its leaves
+    (``ps``: the params' shardings) under the same ``dy`` as one rank's,
+    summed over the data axes that do not split the leaf and gathered
+    whole; for the MoE, slot and disp (tokens in the global numbering, T
+    where another rank's token sits), each gathered over the data axis.
+    Rank 0 holds them to ``ref``. Returns this check's numbers and its
+    collectives."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.collectives import gather_over, sum_over
+    from repro_torch.distributed.sharding import (
+        batch_axis_names, gather_full, mesh_index,
+    )
+    from repro_torch.models.blocks import _gathered
+    tag, pos, b, s = check
+    dev = sp["device"]
+    data = mesh_index(mesh, ("data",))
+    rows = b // sp["layout"][0]
+    x = _layer_input(cfg, sp["seed"], tag, b, s, dev)[
+        data * rows:(data + 1) * rows]
+    ld = model.impl.pattern[pos]
+    res = {}
+    collectives.reset_counts()
+    with torch.no_grad():
+        if tag.startswith("moe"):
+            p = _layer(params, pos, "ffn")
+            moe = MoE()
+            xf = x.reshape(rows * s, -1)
+            w, _ = _gathered(moe, p, cfg, mesh)
+            _, _, disp, _, slot, cap = moe.route(w, xf, cfg, mesh)
+            t_l = rows * s
+            gdisp = torch.where(disp < t_l, disp + data * t_l, b * s)
+            y = moe.forward(p, x, cfg, mesh)[0]
+            slot = gather_over(slot, mesh, ("data",), "check")
+            gdisp = gather_over(gdisp, mesh, ("data",), "check")
+        else:
+            p = {k: v.detach().requires_grad_()
+                 for k, v in _layer(params, pos, "mixer").items()}
+            positions = torch.arange(s, device=dev)[None].expand(rows, s)
+            with torch.enable_grad():
+                y, _ = MIXERS[ld.mixer].fwd_seq(
+                    p, x, {"positions": positions, "mesh": mesh}, cfg)
+                dy = _layer_input(cfg, sp["seed"], f"{tag} dy", b, s, dev)[
+                    data * rows:(data + 1) * rows]
+                grads = torch.autograd.grad((y.float() * dy.float()).sum(),
+                                            list(p.values()))
+            y = y.detach()
+        res["collectives"] = {k: v for k, v in collectives.counts().items()
+                              if k != "check"}
+        if not tag.startswith("moe"):
+            full = {}
+            for (k, g), sh in zip(zip(p, grads),
+                                  ps["blocks"][pos]["mixer"].values()):
+                # the stacked leaf's spec without its repeat dim
+                g = sum_over(g, mesh, [ax for ax in batch_axis_names(mesh)
+                                       if ax not in sh.split_axes()],
+                             "check")
+                full[k] = gather_full(g, sh.spec[1:], mesh)
+        y = gather_over(y, mesh, ("data",), "check").reshape(b, s, -1)
+    if ref is not None:
+        res["row_err"] = row_err(y, ref["y"].to(y.device))
+        if not tag.startswith("moe"):
+            res["grad_row_err"] = {k: row_err(full[k], g.to(dev))
+                                   for k, g in ref["grads"].items()}
+        else:
+            g = ref["groups"]
+            want_disp = ref["disp"].to(gdisp.device)
+            # each group's disp merged over the ranks that share it (groups
+            # of another capacity differ in length)
+            same = gdisp.shape[0] % g == 0 and \
+                gdisp.shape[-1] == want_disp.shape[-1]
+            res["slot_equal"] = bool(torch.equal(
+                slot.reshape(-1, cfg.moe.top_k), ref["slot"].to(dev)))
+            res["disp_equal"] = same and bool(torch.equal(
+                gdisp.reshape(g, -1, gdisp.shape[-1]).amin(1), want_disp))
+            res["groups"], res["cap"] = g, cap
+            res["drops"] = ref["drops"]
+            res["drops_one_group"] = ref["drops_one_group"]
+    return res
+
+
+def moe_ssm_rank(rank: int, sp: dict, ref_dir: str, out: str) -> None:
+    """One rank of phase 17 (under ``spawn_ranks``), for each run: (a) the
+    layer checks on the mesh against one rank's (``_mesh_layer``); (b)
+    the steps on the ``sp["layout"]`` host mesh, each timed by CUDA events
+    around a synchronised step (forward, backward, optimizer), its
+    collectives by kind, then every leaf gathered and held (on rank 0) to
+    the reference's row by row and by its update; (c) peak memory and the
+    kernels' launches of (b). Writes this rank's numbers (JSON) to
+    ``out`` % rank."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import gather_full
+    from repro_torch.launch.shardings import batch_shardings
+    from repro_torch.training.checkpoint import _paths
+    dev = sp["device"]
+    if dev == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank} finds no CUDA device")
+        torch.cuda.set_device(0)
+    global DEVICE
+    DEVICE = dev
+    mesh = make_mesh(MeshLayout(("data", "model"), sp["layout"]), dev)
+    res = {"rank": rank, "coords": list(mesh.get_coordinate()), "runs": {}}
+    for name, (cfg, b, s, remat) in sp["runs"].items():
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = {}
+        model = build_model(cfg)
+        refs = torch.load(os.path.join(ref_dir, f"{name}_layers.pt")) \
+            if rank == 0 else {}
+        with mesh_context(mesh):
+            ps = model.param_shardings(mesh)
+            params = model.init(torch.Generator(device=dev).manual_seed(
+                sp["seed"]), dev, mesh)
+            run["layers"] = {
+                check[0]: _mesh_layer(cfg, model, params, ps, check, sp,
+                                      mesh, refs.get(check[0]))
+                for check in _layer_checks(name, model, sp)}
+            del refs
+            bs = batch_shardings(model, ShapeConfig("mesh", s, b, "train"),
+                                 mesh)
+            batches = _mesh_batches(model, {"device": dev, "seq": s,
+                                            "batch": b,
+                                            "steps": sp["steps"]}, bs)
+            init = tree_map(lambda t: t.to("cpu", copy=True), params)
+            opt, marks, grad_max = instrument_step(
+                model, make_optimizer(OptimizerConfig(**TRAIN_OPT)))
+            state = opt.init(params, ps)
+            step = make_train_step(model, opt, remat_policy=remat)
+            kernels.reset_launch_counts()
+            recs = []
+            for batch in batches:
+                _sync()
+                dist.barrier()
+                collectives.reset_counts()
+                t1, start = time.perf_counter(), _mark()
+                params, state, m = step(params, state, batch)
+                end = _mark()
+                _sync()
+                recs.append({"loss": m["loss"].item(),
+                             "grad_norm": m["grad_norm"].item(),
+                             "step_ms": _between(start, end),
+                             "wall_ms": (time.perf_counter() - t1) * 1e3,
+                             "collectives": collectives.counts()})
+            run["launches"] = kernels.launch_counts()
+        for rec, mk, gm in zip(recs, marks, grad_max):
+            rec["fwd_ms"] = _between(mk[0], mk[1])
+            rec["bwd_ms"] = _between(mk[1], mk[2])
+            rec["opt_ms"] = _between(mk[2], mk[3])
+            rec["zero_grad_leaves"] = int((gm == 0).sum())
+        run["steps"] = recs
+        run["peak_gib"] = _peak() / 2**30
+        del batches, state, m, opt, step
+        ref = dict(_ref_leaves(os.path.join(ref_dir, name), sp["steps"])) \
+            if rank == 0 else {}
+        worst, worst_small, worst_upd = (0.0, ""), (0.0, ""), (0.0, "")
+        for (key, leaf), (_, sh), (_, leaf0), (_, spec) in zip(
+                _paths(params), _paths(ps), _paths(init),
+                _paths(model.specs())):
+            full = gather_full(leaf, sh.spec, mesh)
+            full0 = gather_full(leaf0.to(dev), sh.spec, mesh)
+            if rank == 0:
+                want = ref.pop(key).to(full.device)
+                err = (row_err(full, want), key)
+                if spec.init in SMALL_INITS:
+                    worst_small = max(worst_small, err)
+                else:
+                    worst = max(worst, err)
+                worst_upd = max(worst_upd,
+                                (update_err(full, want, full0), key))
+                del want
+            del full, full0
+        run["leaf_row_err"] = list(worst)
+        run["small_leaf_row_err"] = list(worst_small)
+        run["leaf_update_err"] = list(worst_upd)
+        run["seconds"] = time.perf_counter() - t0
+        res["runs"][name] = run
+        del ref, init, params, model
+        _free()
+    with open(out % rank, "w") as f:
+        json.dump(res, f)
+
+
+def _check_moe_ssm_run(name: str, sp: dict, ref_recs, recs) -> None:
+    """The checks and lines of one run of phase 17 (rank 0 holds the
+    comparisons)."""
+    cfg, b, s, _ = sp["runs"][name]
+    r0 = recs[0]["runs"][name]
+    tol = ROW_RTOL[torch.bfloat16]
+    for tag, lay in r0["layers"].items():
+        line = (f"[moe-ssm] (a) {name} {tag} layer on the mesh against one "
+                f"rank: row_err {lay['row_err']:.3g} (limit {tol})")
+        if tag.startswith("moe"):
+            line += (f"; {lay['groups']} group(s) of capacity {lay['cap']}, "
+                     f"slot equal {lay['slot_equal']}, disp equal "
+                     f"{lay['disp_equal']}; assignments dropped: "
+                     f"{lay['drops']} in the mesh's groups, "
+                     f"{lay['drops_one_group']} in one group of all "
+                     f"tokens")
+        line += "; collectives (calls, MB): " + ", ".join(
+            f"{k} {v['calls']} {v['bytes'] / 1e6:.3f}"
+            for k, v in sorted(lay["collectives"].items()))
+        grads = lay.get("grad_row_err", {})
+        if grads:
+            line += ("; its leaves' gradients, row_err (limit "
+                     f"{tol}): " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                            sorted(grads.items())))
+        log(line)
+        if not lay["row_err"] <= tol:
+            fail(f"moe-ssm {name} {tag}: row_err {lay['row_err']} > {tol}")
+        for k, v in sorted(grads.items()):
+            if not v <= tol:
+                fail(f"moe-ssm {name} {tag}: the gradient of leaf {k} off "
+                     f"one rank's: row_err {v} > {tol}")
+        if tag.startswith("moe") and not (lay["slot_equal"]
+                                          and lay["disp_equal"]):
+            fail(f"moe-ssm {name} {tag}: the drop pattern differs from "
+                 f"one rank's per-group route")
+    if "moe_decode" in r0["layers"] and \
+            "moe_counts" not in r0["layers"]["moe_decode"]["collectives"]:
+        fail(f"moe-ssm {name}: the decode-scale batch made no count "
+             f"exchange")
+    for i, (ref, got) in enumerate(zip(ref_recs, r0["steps"])):
+        le = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        ge = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        log(f"[moe-ssm] (b) {name} step {i}: loss {got['loss']:.5f} vs one "
+            f"rank's {ref['loss']:.5f} (rel err {le:.3g}, limit "
+            f"{MESH_LOSS_RTOL}); grad norm {got['grad_norm']:.5f} vs "
+            f"{ref['grad_norm']:.5f} (rel err {ge:.3g}, limit "
+            f"{MESH_GNORM_RTOL}); rank 0 step {got['step_ms']:.1f} ms (CUDA "
+            f"events; forward {got['fwd_ms']:.1f}, backward "
+            f"{got['bwd_ms']:.1f}, optimizer {got['opt_ms']:.1f}), wall "
+            f"{got['wall_ms']:.1f} ms; one rank {ref['wall_ms']:.1f} ms "
+            f"(forward {ref['fwd_ms']:.1f}, backward {ref['bwd_ms']:.1f}, "
+            f"optimizer {ref['opt_ms']:.1f})")
+        if not (le <= MESH_LOSS_RTOL and ge <= MESH_GNORM_RTOL):
+            fail(f"moe-ssm {name} step {i}: loss or grad norm off one "
+                 f"rank's: {got['loss']} vs {ref['loss']}, "
+                 f"{got['grad_norm']} vs {ref['grad_norm']}")
+    bad = [(rec["rank"], i) for rec in recs
+           for i, st in enumerate(rec["runs"][name]["steps"])
+           if not (np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"]))
+           or st["zero_grad_leaves"]]
+    if bad:
+        fail(f"moe-ssm {name}: a non-finite loss or norm, or a leaf whose "
+             f"local gradient is all zero (rank, step): {bad}")
+    last = r0["steps"][-1]["collectives"]
+    log(f"[moe-ssm] (c) {name} {cfg.num_layers} layers on a "
+        f"{tuple(sp['layout'])} (data, model) mesh of {MESH_WORLD} ranks, "
+        f"global batch {b} x {s}: collectives of rank 0's last step "
+        f"(calls, MB): " + ", ".join(
+            f"{k} {v['calls']} {v['bytes'] / 1e6:.1f}"
+            for k, v in sorted(last.items()))
+        + f"; {sum(v['bytes'] for v in last.values()) / 1e9:.3f} GB in all")
+    log(f"[moe-ssm] (c) {name} peak memory per rank (GiB): " + ", ".join(
+        f"{rec['runs'][name]['peak_gib']:.2f}" for rec in recs)
+        + "; step ms per rank (last step, CUDA events): " + ", ".join(
+            f"{rec['runs'][name]['steps'][-1]['step_ms']:.1f}"
+            for rec in recs)
+        + "; flash and ssd_scan launches per rank: " + ", ".join(
+            f"{rec['runs'][name]['launches'].get('flash_attention', 0)}/"
+            f"{rec['runs'][name]['launches'].get('ssd_scan', 0)}"
+            for rec in recs)
+        + f"; the run took {r0['seconds']:.1f} s on rank 0")
+    err, key = r0["leaf_row_err"]
+    serr, skey = r0["small_leaf_row_err"]
+    uerr, ukey = r0["leaf_update_err"]
+    log(f"[moe-ssm] (b) {name} leaves after step {sp['steps']} against one "
+        f"rank's: worst row_err {err:.3g} at {key} (limit {tol}; the leaves "
+        f"drawn at zero or a tenth of the scale, held by (a)'s gradients "
+        f"and their update: {serr:.3g} at {skey or 'none'}); worst update "
+        f"error {uerr:.3g} at {ukey} (limit {MESH_UPDATE_RTOL}; no update "
+        f"reads 1)")
+    if not err <= tol:
+        fail(f"moe-ssm {name}: leaf {key} row_err {err} > {tol}")
+    if not uerr <= MESH_UPDATE_RTOL:
+        fail(f"moe-ssm {name}: leaf {ukey}'s update off one rank's: {uerr} "
+             f"> {MESH_UPDATE_RTOL}")
+    if DEVICE == "cuda":
+        kernel = "flash_attention" if any(
+            ld.mixer == "attn" for ld in build_model(cfg).impl.pattern) \
+            else "ssd_scan"
+        if not all(rec["runs"][name]["launches"].get(kernel)
+                   for rec in recs):
+            fail(f"moe-ssm {name}: {kernel} never launched on some rank")
+
+
+def phase_mesh_moe_ssm():
+    """Phase 17: each run's one-rank reference (a, b), then every run on
+    ``MESH_WORLD`` ranks sharing the card (``moe_ssm_rank``); the checks.
+    Returns the launch counts of the one-rank runs and of every rank's
+    steps."""
+    import tempfile
+    card = _card()
+    sp = _moe_ssm_spec()
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = {}
+        for name in sp["runs"]:
+            t0 = time.perf_counter()
+            recs, c, _ = moe_ssm_reference(name, tmp, sp)
+            refs[name] = recs
+            counts.update(c)
+            log(f"[moe-ssm] {name} one rank took "
+                f"{time.perf_counter() - t0:.1f} s on {card}")
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "moe_ssm_rank%d.json")
+        spawn_ranks(moe_ssm_rank, MESH_WORLD, sp, tmp, out)
+        recs = []
+        for r in range(MESH_WORLD):
+            with open(out % r) as f:
+                recs.append(json.load(f))
+        log(f"[moe-ssm] the runs on {MESH_WORLD} ranks took "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+    for name in sp["runs"]:
+        _check_moe_ssm_run(name, sp, refs[name], recs)
+        for rec in recs:
+            counts.update(rec["runs"][name]["launches"])
+    return counts
+
+
 def _card() -> str:
     if DEVICE != "cuda":
         return "the CPU"
@@ -3321,9 +3940,9 @@ def main() -> None:
     phase_build()
     checked, shape_rows = phase_kernels()
     # launches summed over every serving phase's runs, phase 14's two
-    # training runs, phase 15's serve CLI and phase 16's runs on one rank
-    # and on each rank of the mesh (each resets the counts just before it
-    # runs and reads them just after)
+    # training runs, phase 15's serve CLI and phases 16 and 17's runs on
+    # one rank and on each rank of the mesh (each resets the counts just
+    # before it runs and reads them just after)
     launches = Counter()
     for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
                   phase_moonshot, phase_jamba, phase_danube, phase_whisper,
@@ -3333,6 +3952,7 @@ def main() -> None:
     launches.update(phase_train(shape_rows))
     launches.update(phase_distributed())
     launches.update(phase_mesh_train(shape_rows))
+    launches.update(phase_mesh_moe_ssm())
     log(f"[launches] every serving, training and CLI phase: "
         f"{dict(launches)}")
     rows = []

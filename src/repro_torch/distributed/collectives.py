@@ -15,8 +15,13 @@ Each is a ``torch.autograd.Function`` over a process group of a
     region*, all-reduce forward, identity backward (the partial sums of a
     row-parallel product, the vocab-parallel lookup and cross-entropy
     terms, and the loss's sums over the data axes);
-  * ``max_over`` and ``sum_over``, outside autograd (the cross-entropy's
-    max; the mask count, squared norms, gradient and optimizer sums).
+  * ``tp_gather``: a weight's tensor-parallel blocks all-gathered whole
+    (forward), its gradient reduce-scattered back (backward): for a leaf
+    whose stored blocks are not the columns a rank computes with (Mamba's
+    ``in_proj``, whose x and z halves each split over the heads);
+  * ``max_over``, ``sum_over`` and ``gather_over``, outside autograd (the
+    cross-entropy's max; the mask count, squared norms, gradient and
+    optimizer sums; the MoE's per-expert counts of each data rank).
 
 Every call counts the bytes of the tensor it reduces or produces on this
 rank, by kind (``counts``): an all-gather the gathered tensor, an
@@ -132,19 +137,19 @@ def _groups(mesh, spec: Spec, ndim: int):
     return out
 
 
-class _FsdpGather(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, groups):
-        ctx.groups = groups
+    def forward(ctx, w, groups, kind):
+        ctx.groups, ctx.kind = groups, kind
         for dim, group in groups:
-            w = all_gather_dim(w, group, dim, "fsdp_all_gather")
+            w = all_gather_dim(w, group, dim, kind + "_all_gather")
         return w
 
     @staticmethod
     def backward(ctx, g):
         for dim, group in reversed(ctx.groups):
-            g = reduce_scatter_dim(g, group, dim, "fsdp_reduce_scatter")
-        return g, None
+            g = reduce_scatter_dim(g, group, dim, ctx.kind + "_reduce_scatter")
+        return g, None, None
 
 
 class _CopyToRegion(torch.autograd.Function):
@@ -176,7 +181,18 @@ def fsdp_gather(w: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     groups = _groups(mesh, spec, w.dim())
     if not groups:
         return w
-    return _FsdpGather.apply(w, groups)
+    return _Gather.apply(w, groups, "fsdp")
+
+
+def tp_gather(w: torch.Tensor, spec: Spec, mesh, dim: int) -> torch.Tensor:
+    """``w`` with dimension ``dim``, which ``spec`` splits over
+    tensor-parallel axes, gathered whole (``w`` itself where it stays
+    whole). Backward: the reduce-scatter, which sums the ranks' gradients
+    of the whole leaf into each block."""
+    axes = spec_axes(spec, dim)
+    if not axes:
+        return w
+    return _Gather.apply(w, [(dim, mesh_group(mesh, axes))], "tp")
 
 
 def _axes_group(mesh, axes: Sequence[str]):
@@ -212,3 +228,14 @@ def max_over(t: torch.Tensor, mesh, axes: Sequence[str],
              kind: str) -> torch.Tensor:
     group = _axes_group(mesh, axes)
     return t if group is None else all_max(t, group, kind)
+
+
+def gather_over(t: torch.Tensor, mesh, axes: Sequence[str],
+                kind: str) -> torch.Tensor:
+    """[n, *t.shape]: ``t`` of each rank along ``axes``, in the order of
+    ``mesh_index`` over them, outside autograd (``t[None]`` where they are
+    all of size 1)."""
+    group = _axes_group(mesh, axes)
+    if group is None:
+        return t[None]
+    return all_gather_dim(t[None], group, 0, kind)

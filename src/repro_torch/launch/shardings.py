@@ -6,7 +6,7 @@ from __future__ import annotations
 from typing import Any
 
 from repro_torch.distributed.sharding import NamedSharding
-from repro_torch.models.common import tree_map, tree_shardings
+from repro_torch.models.common import tree_map
 
 
 def _replicated(mesh) -> NamedSharding:
@@ -52,5 +52,6 @@ def opt_shardings(opt_state, param_shardings, mesh) -> Any:
 
 def batch_shardings(model, shape, mesh, rules=None):
     """Each input's sharding: its batch dim over the data axes (where they
-    divide it)."""
-    return tree_shardings(model.input_spec_tree(shape), mesh, rules)
+    divide it; an MoE config refuses a batch they do not split:
+    ``Model.batch_shardings``)."""
+    return model.batch_shardings(shape, mesh, rules)

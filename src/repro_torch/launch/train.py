@@ -7,7 +7,9 @@ Runs on the card (``--device cuda``, the default; the flash and ssd_scan
 kernels run every attention and SSD forward) or, with ``--device cpu``, on
 the plain PyTorch versions. ``--scaled`` takes the reduced config of the
 same family (``--layers`` sets its depth); without it the published
-config runs, cut to ``--layers`` layers when given. Fault tolerance:
+config runs, cut to ``--layers`` layers when given (the reference's
+launcher reads ``--layers`` only with ``--scaled``; the port cuts the
+published width too, so that a full-width model fits one card). Fault tolerance:
 checkpoints every ``--ckpt-every`` steps; rerunning with the same
 ``--ckpt-dir`` resumes from the latest checkpoint and replays identical
 data (the pipeline is keyed by step).
@@ -15,9 +17,12 @@ data (the pipeline is keyed by step).
 Meshes: in a process group of several ranks (started by
 ``launch.mesh.spawn_ranks``, or by a launcher such as ``torchrun
 --nproc-per-node N -m repro_torch.launch.train``, whose environment
-``launch.mesh.init_from_env`` reads), ``--mesh host`` trains the dense
-attention stack over ``make_host_mesh()``: (N/2, 2) ("data", "model") from
-four ranks up, FSDP x TP under the train rules; alone, on one device.
+``launch.mesh.init_from_env`` reads), ``--mesh host`` trains any
+decoder-only config (dense, MoE, Mamba hybrid, xLSTM) over
+``make_host_mesh()``: (N/2, 2) ("data", "model") from four ranks up, FSDP
+x TP (x expert parallelism) under the train rules; alone, on one device.
+An MoE config's ``--batch`` must split over the data shards
+(``Model.batch_shardings`` raises otherwise).
 ``--mesh single_pod`` / ``multi_pod`` need a world of 256 / 512 ranks.
 Only rank 0 prints.
 """

@@ -24,11 +24,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.distributed.collectives import (
-    copy_to_region, fsdp_gather, reduce_from_region,
+    copy_to_region, fsdp_gather, gather_over, reduce_from_region, sum_over,
+    tp_gather,
 )
 from repro_torch.distributed.sharding import (
-    axis_sizes, get_mesh, get_rules, mesh_group, mesh_index, spec_axes,
-    spec_for,
+    axis_sizes, batch_axis_names, get_mesh, get_rules, mesh_group,
+    mesh_index, num_data_shards, spec_axes, spec_for,
 )
 from repro_torch.models.attention_ops import (
     decode_attention, distributed_decode_attention,
@@ -281,6 +282,17 @@ def _gathered(block, p, cfg: ModelConfig, mesh):
     return {n: fsdp_gather(p[n], sp[n], mesh) for n in sp}, sp
 
 
+def _heads_axes(sp, dims: Dict[str, int]) -> Tuple[str, ...]:
+    """The axes that split the heads of a heads-parallel block: dimension
+    ``dims[name]`` of each leaf's spec must split over the same axes (or
+    every one stay whole), since no head's work crosses ranks."""
+    split = {n: spec_axes(sp[n], dim) for n, dim in dims.items()}
+    axes = set(split.values())
+    if len(axes) > 1:
+        raise ValueError(f"the heads of a block split unevenly: {split}")
+    return axes.pop()
+
+
 def _kv_heads_read(cfg: ModelConfig, hq_local: int, block: int):
     """The KV heads that query heads ``block * hq_local`` on read (GQA: head
     h reads KV head h // (Hq / Hkv)), for a rank whose query heads are
@@ -446,18 +458,44 @@ class MoE:
         c3 = int(math.ceil(lam + 3.0 * math.sqrt(max(lam, 1e-9))))
         return min(tokens_per_group, max(c, c3, m.min_capacity))
 
-    def route(self, p, xf: torch.Tensor, cfg: ModelConfig):
+    @staticmethod
+    def _data(mesh) -> Tuple[Tuple[str, ...], int]:
+        """(data axes, data shards): under a mesh the MoE's rows are this
+        data rank's block of the global batch's tokens, in their order."""
+        if mesh is None:
+            return (), 1
+        return batch_axis_names(mesh), num_data_shards(mesh)
+
+    def route(self, p, xf: torch.Tensor, cfg: ModelConfig, mesh=None):
         """Routing of the tokens xf [T, D]: the router's softmax ``probs``
         [T, E] (f32), the top-k experts ``top_e`` [T, k], and the capacity
-        slots: ``disp`` [E * cap] (the source token of each slot, T for an
-        empty one), ``wcomb`` [E * cap] (its combine weight) and ``slot``
-        [T, k] (each assignment's slot in ascending order, E * cap where
-        capacity dropped it). The port has no mesh, so all tokens form one
-        group (the JAX block's g = 1)."""
+        slots of the group the tokens route in: ``disp`` [E * cap] (the
+        source token of each slot, T for an empty one), ``wcomb`` [E * cap]
+        (its combine weight) and ``slot`` [T, k] (each assignment's slot in
+        ascending order, E * cap where capacity dropped it). ``p["router"]``
+        is the whole router.
+
+        With no mesh all tokens form one group. Under a ``mesh`` xf is this
+        data rank's block of the global batch's t tokens (split over every
+        data axis: ``_data``; ``Model.batch_shardings`` refuses a batch that
+        is not), grouped as the JAX block groups
+        them: g = 1 where t * k <= 8 E, else g = gcd(t, data shards), one
+        group per data rank. g = shards: the rank's rows are a group of
+        their own, capacity ``_capacity`` of its T tokens; nothing crosses
+        ranks. g = 1: one group of every rank's tokens, capacity of t; each
+        rank's pre-capacity per-expert counts are all-gathered over the data
+        axes (``moe_counts``, the only exchange), and an assignment's place
+        in its expert is its place among this rank's plus the counts of the
+        ranks before it: the JAX block's stable sort by expert over the
+        global token order. ``slot`` is then in the group's numbering and
+        ``disp`` holds this rank's tokens only (T at a slot that another
+        rank's token fills)."""
         m = cfg.moe
         t = xf.shape[0]
         e, k = m.num_experts, m.top_k
-        cap = self._capacity(t, m)
+        data, shards = self._data(mesh)
+        exchange = shards > 1 and t * shards * k <= 8 * e
+        cap = self._capacity(t * shards if exchange else t, m)
         dev = xf.device
         probs = torch.softmax(_einsum("td,de->te", xf, p["router"]), dim=-1)
         top_p, top_e = torch.topk(probs, k, dim=-1)
@@ -466,8 +504,14 @@ class MoE:
         order = torch.argsort(flat_e, stable=True)
         sorted_e = flat_e[order]
         # position within the expert = rank - first rank of that expert
-        first = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+        experts = torch.arange(e, device=dev)
+        first = torch.searchsorted(sorted_e, experts)
         pos_in_e = torch.arange(t * k, device=dev) - first[sorted_e]
+        if exchange:
+            counts = (flat_e[:, None] == experts).sum(dim=0)
+            every = gather_over(counts, mesh, data, "moe_counts")
+            before = every[:mesh_index(mesh, data)].sum(dim=0)
+            pos_in_e = pos_in_e + before[sorted_e]
         sorted_slot = torch.where(pos_in_e < cap, sorted_e * cap + pos_in_e,
                                   e * cap)
         # the spare column e * cap takes every dropped assignment; cut below
@@ -481,7 +525,7 @@ class MoE:
         slot = slot.view(t, k).sort(dim=-1).values
         return probs, top_e, disp[:-1], wcomb[:-1], slot, cap
 
-    def forward(self, p, x, cfg: ModelConfig):
+    def forward(self, p, x, cfg: ModelConfig, mesh=None):
         """x [..., D] -> (y [..., D], probs [T, E], top_e [T, k]): the
         layer's output and its routing, without the aux loss (the decode
         paths discard it, as the JAX model's jit does).
@@ -489,41 +533,75 @@ class MoE:
         The combine gathers each token's weighted expert outputs and adds
         them in ascending expert order, the order in which the JAX CPU
         scatter-add applies them; no atomics, so a CUDA call is
-        deterministic. Nothing here waits for the device."""
+        deterministic. Nothing here waits for the device.
+
+        ``mesh``: ``route``'s groups, and expert parallelism on the rank's
+        blocks (``_gathered``: each expert's d dim gathered over the data
+        axes). The router, its top-k and the combine weights stay outside
+        the region of the axes that split the experts (the model axis), so
+        the router's gradient is whole on every rank; the tokens and the
+        combine weights enter it through a *copy to region*. The tokens are
+        whole on every model rank, so each picks the slots of its own
+        experts locally, runs them, and adds its experts' part of each
+        token's combine (in ascending order); the parts are summed over the
+        model axis (no all-to-all)."""
         shape = x.shape
         d = shape[-1]
         xf = x.reshape(-1, d)
         e = cfg.moe.num_experts
-        probs, top_e, disp, wcomb, slot, cap = self.route(p, xf, cfg)
-        xpad = torch.cat([xf, xf.new_zeros(1, d)])
-        xd = xpad[disp].view(e, cap, d)
-        h = _bmm(xd, p["w_in"])
-        g = _bmm(xd, p["w_gate"])
+        w, sp = _gathered(self, p, cfg, mesh)
+        probs, top_e, disp, wcomb, slot, cap = self.route(w, xf, cfg, mesh)
+        axes = spec_axes(sp["w_in"], 0)
+        e_l = w["w_in"].shape[0]
+        lo = mesh_index(mesh, axes) * e_l * cap if axes else 0
+        mine = slice(lo, lo + e_l * cap)
+        xr = copy_to_region(xf, mesh, axes)
+        xpad = torch.cat([xr, xr.new_zeros(1, d)])
+        xd = xpad[disp[mine]].view(e_l, cap, d)
+        h = _bmm(xd, w["w_in"])
+        g = _bmm(xd, w["w_gate"])
         h = F.silu(g) * h
         # bf16 weights: the hidden is rounded to bf16 before w_out, as in
         # SwiGLU, so the product stays on the tensor cores
-        yd = _bmm(h.to(p["w_out"].dtype), p["w_out"]).to(x.dtype)
-        yd = yd.view(e * cap, d) * wcomb[:, None].to(yd.dtype)
-        yd = torch.cat([yd, yd.new_zeros(1, d)])       # row e * cap: dropped
+        yd = _bmm(h.to(w["w_out"].dtype), w["w_out"]).to(x.dtype)
+        wc = copy_to_region(wcomb, mesh, axes)[mine]
+        yd = yd.view(e_l * cap, d) * wc[:, None].to(yd.dtype)
+        yd = torch.cat([yd, yd.new_zeros(1, d)])   # row e_l * cap: elsewhere
+        if axes:
+            local = slot - lo
+            slot = torch.where((local >= 0) & (local < e_l * cap), local,
+                               e_l * cap)
         parts = yd[slot]                               # [T, k, D]
         out = parts[:, 0]
         for j in range(1, cfg.moe.top_k):
             out = out + parts[:, j]
+        out = reduce_from_region(out, mesh, axes)
         return out.reshape(shape), probs, top_e
 
-    def __call__(self, p, x, cfg: ModelConfig, return_stats: bool = False):
+    def __call__(self, p, x, cfg: ModelConfig, return_stats: bool = False,
+                 mesh=None):
         """x [..., D] -> (y [..., D], aux) (+ the per-expert assignment
         counts [E], pre-capacity, with ``return_stats``), as the JAX
-        block."""
-        out, probs, top_e = self.forward(p, x, cfg)
-        experts = torch.arange(cfg.moe.num_experts, device=x.device)
+        block. Under a ``mesh`` the aux loss and the counts are the global
+        batch's: the [E] sums of the router's probabilities and of the
+        top-1 choices are summed over the data axes before the means' product
+        (the first with an identity backward, so each rank's gradient is its
+        own tokens' part of the global one)."""
+        out, probs, top_e = self.forward(p, x, cfg, mesh)
+        e = cfg.moe.num_experts
+        experts = torch.arange(e, device=x.device)
+        data, shards = self._data(mesh)
+        t = probs.shape[0] * shards
         # load-balance aux loss (Switch): E * sum(frac_tokens * frac_probs)
-        me = probs.mean(dim=0)
-        ce = (top_e[:, :1] == experts).float().mean(dim=0)
-        aux = cfg.moe.num_experts * torch.sum(me * ce)
+        me = reduce_from_region(probs.sum(dim=0), mesh, data,
+                                "moe_aux_all_reduce") / t
+        ce = sum_over((top_e[:, :1] == experts).float().sum(dim=0),
+                      mesh, data, "moe_aux_all_reduce") / t
+        aux = e * torch.sum(me * ce)
         if return_stats:
             counts = (top_e.reshape(-1, 1) == experts).float().sum(dim=0)
-            return out, aux, counts
+            return out, aux, sum_over(counts, mesh, data,
+                                      "moe_aux_all_reduce")
         return out, aux
 
 
@@ -643,44 +721,89 @@ class Mamba:
         xz = _einsum("...d,de->...e", x, p["in_proj"]).to(x.dtype)
         return xz[..., :d_in], xz[..., d_in:]
 
-    def _ssm_inputs(self, p, x, xc, cfg):
-        """B/C, the step dt and the log decay of x [..., D], and the values
-        v = xh * dt of the conv output xc [..., d_in] (f32)."""
+    def _bc(self, p, x):
+        return _einsum("...d,dn->...n", x, p["bc_proj"]).to(x.dtype)
+
+    def _ssm_inputs(self, p, x, bc, xc, cfg):
+        """B/C (from ``bc``), the step dt and the log decay of x [..., D],
+        and the values v = xh * dt of the conv output xc [..., d_in]
+        (f32)."""
         n = cfg.ssm.d_state
-        bc = _einsum("...d,dn->...n", x, p["bc_proj"]).to(x.dtype)
         dt = F.softplus(_einsum("...d,dh->...h", x, p["dt_proj"])
                         + p["dt_bias"])
         log_a = dt * -torch.exp(p["a_log"])
         xh = xc.reshape(xc.shape[:-1] + (-1, self.HEAD_DIM))
         return bc[..., :n], bc[..., n:], log_a, xh, xh * dt[..., None]
 
-    def _out(self, p, x, y, xh, z):
+    def _out(self, p, x, y, xh, z, mesh=None, axes=()):
         y = y + xh.float() * p["d_skip"][:, None]
         y = y.reshape(z.shape).to(x.dtype) * F.silu(z)
-        return _einsum("...e,ed->...d", y, p["out_proj"]).to(x.dtype)
+        return reduce_from_region(_einsum("...e,ed->...d", y, p["out_proj"]),
+                                  mesh, axes).to(x.dtype)
+
+    # each leaf's dimension that the heads split, directly ("heads") or
+    # through their channels ("ssm_inner")
+    HEAD_DIMS = {"conv_w": 1, "dt_proj": 1, "dt_bias": 0, "a_log": 0,
+                 "d_skip": 0, "out_proj": 0}
+
+    def _mesh_weights(self, p, cfg, mesh):
+        """(weights, axes) of ``fwd_seq`` on ``mesh``: every leaf
+        FSDP-gathered (``_gathered``), the heads (and their d_in channels)
+        split over ``axes``. ``in_proj`` [d, 2 d_in] is stored as the
+        reference's ``param_shardings`` splits it, in contiguous blocks
+        of its 2 d_in columns, which do not hold a rank's heads (the x half
+        and the z half split at d_in): it is gathered whole over its
+        tensor-parallel axes (``tp_gather``) and the rank takes its heads'
+        columns of both halves. With no mesh: ``p``, ()."""
+        w, sp = _gathered(self, p, cfg, mesh)
+        axes = _heads_axes(sp, self.HEAD_DIMS)
+        if mesh is None:
+            return w, axes
+        full = tp_gather(w["in_proj"], sp["in_proj"], mesh, 1)
+        if axes:
+            d_in = full.shape[1] // 2
+            d_l = w["out_proj"].shape[0]
+            lo = mesh_index(mesh, axes) * d_l
+            full = torch.cat([full[:, lo:lo + d_l],
+                              full[:, d_in + lo:d_in + lo + d_l]], dim=1)
+        return dict(w, in_proj=full), axes
 
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
         """The causal depthwise conv, then the SSD recurrence over the
         prompt: on CUDA the hand-written ``ssd_scan`` kernel, on the CPU its
         plain version (the JAX model calls the same plain ``ssd_chunked``
         at blocks.py:490). Returns (out, {"ssm", "conv"}): the final state
-        and the conv's last d_conv - 1 inputs."""
+        and the conv's last d_conv - 1 inputs.
+
+        ``ctx["mesh"]``: heads-parallel on the rank's blocks
+        (``_mesh_weights``): in_proj's columns, conv_w, dt_proj and the
+        per-head vectors of the rank's heads; out_proj row-parallel, its
+        partial sums reduced over the heads' axes; the scan on the rank's
+        heads. ``bc_proj`` feeds every head and stays whole: B and C are
+        computed before the region and enter it through a *copy to
+        region*, so its gradient is whole on every rank."""
         b, t, _ = x.shape
         d_conv = cfg.ssm.d_conv
-        _, h, n = self.dims(cfg)
-        xi, z = self._proj_gates(p, x)
+        mesh = (ctx or {}).get("mesh")
+        w, axes = self._mesh_weights(p, cfg, mesh)
+        n = cfg.ssm.d_state
+        bc = copy_to_region(self._bc(w, x), mesh, axes)
+        x_in = copy_to_region(x, mesh, axes)
+        xi, z = self._proj_gates(w, x_in)
         conv_tail = xi[:, -(d_conv - 1):, :]
         xpad = F.pad(xi, (0, 0, d_conv - 1, 0))
-        xc = sum(xpad[:, i:i + t, :] * p["conv_w"][i][None, None, :]
+        xc = sum(xpad[:, i:i + t, :] * w["conv_w"][i][None, None, :]
                  for i in range(d_conv))
         xc = F.silu(xc)
-        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(p, x, xc, cfg)
+        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(w, x_in, bc, xc, cfg)
+        h = xh.shape[-2]
         # the kernel takes dense [B, T, H, n] q/k; JAX broadcasts them
         q = c_mat[:, :, None, :].expand(b, t, h, n).contiguous()
         k = b_mat[:, :, None, :].expand(b, t, h, n).contiguous()
         y, final = ssd_scan(q, k, v.contiguous(), log_a.contiguous(),
                             chunk=cfg.ssm.chunk_size)
-        return self._out(p, x, y, xh, z), {"ssm": final, "conv": conv_tail}
+        return (self._out(w, x, y, xh, z, mesh, axes),
+                {"ssm": final, "conv": conv_tail})
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
         bsz = x.shape[0]
@@ -688,7 +811,8 @@ class Mamba:
         xi, z = self._proj_gates(p, x)                 # [B, d_in]
         window = torch.cat([state["conv"], xi[:, None, :]], dim=1)
         xc = F.silu(_einsum("bcd,cd->bd", window, p["conv_w"]).to(x.dtype))
-        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(p, x, xc, cfg)
+        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(p, x, self._bc(p, x),
+                                                      xc, cfg)
         q = c_mat[:, None, :].expand(bsz, h, n)
         k = b_mat[:, None, :].expand(bsz, h, n)
         y, new_ssm = ssd_decode_step(q, k, v, log_a, state["ssm"])
@@ -751,19 +875,31 @@ class MLSTM:
         num, den = y[..., :-1], y[..., -1:]
         return num / torch.clamp(den.abs(), min=1.0)
 
+    HEAD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "w_if": 2, "b_if": 1, "wo": 0}
+
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
         """On CUDA the recurrence is the hand-written ``ssd_scan`` kernel;
         on the CPU its plain version (the JAX model calls the same plain
-        ``ssd_chunked`` at blocks.py:573)."""
-        q, k, v = self._qkv(p, x, cfg)
-        i_gate, log_f = self._gates(p, x)              # [b,t,h]
+        ``ssd_chunked`` at blocks.py:573).
+
+        ``ctx["mesh"]``: heads-parallel on the rank's blocks
+        (``_gathered``): q/k/v and the gates column-parallel over the
+        heads' axes, the scan on the rank's heads, ``wo`` row-parallel
+        with its partial sums reduced over them (no norm crosses heads)."""
+        mesh = (ctx or {}).get("mesh")
+        w, sp = _gathered(self, p, cfg, mesh)
+        axes = _heads_axes(sp, self.HEAD_DIMS)
+        x_in = copy_to_region(x, mesh, axes)
+        q, k, v = self._qkv(w, x_in, cfg)
+        i_gate, log_f = self._gates(w, x_in)           # [b,t,h]
         v_aug = self._v_aug(v, i_gate)
         y, final = ssd_scan(q.contiguous(), k.contiguous(),
                             v_aug.contiguous(), log_f.contiguous(),
                             chunk=cfg.ssm.chunk_size)
         hh = self._read(y).to(x.dtype)
-        out = _einsum("bthk,hkd->btd", hh, p["wo"]).to(x.dtype)
-        return out, {"c": final}
+        out = reduce_from_region(_einsum("bthk,hkd->btd", hh, w["wo"]),
+                                 mesh, axes)
+        return out.to(x.dtype), {"c": final}
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
         q, k, v = self._qkv(p, x, cfg)
@@ -819,14 +955,25 @@ class SLSTM:
 
     TIME_CHUNK = 64
 
+    HEAD_DIMS = {"w": 2, "r": 0, "b": 1, "wo": 0}
+
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
         """The time loop; under autograd each chunk of ``TIME_CHUNK`` steps
         (the largest divisor of T not above it) is checkpointed, as the JAX
         block's ``jax.checkpoint`` chunk body is: the backward keeps only
-        the (c, n, h) state between chunks and recomputes a chunk's steps."""
+        the (c, n, h) state between chunks and recomputes a chunk's steps.
+
+        ``ctx["mesh"]``: heads-parallel on the rank's blocks (``_gathered``;
+        the recurrence is block-diagonal over the heads): w, r and b of the
+        rank's heads, ``wo`` row-parallel with its partial sums reduced
+        over the heads' axes."""
         b, t, _ = x.shape
-        wx = _einsum("btd,dghk->btghk", x, p["w"])     # [b,t,4,h,hd]
-        zeros = torch.zeros((b, cfg.num_heads, cfg.resolved_head_dim),
+        mesh = (ctx or {}).get("mesh")
+        p, sp = _gathered(self, p, cfg, mesh)
+        axes = _heads_axes(sp, self.HEAD_DIMS)
+        wx = _einsum("btd,dghk->btghk", copy_to_region(x, mesh, axes),
+                     p["w"])                           # [b,t,4,h,hd]
+        zeros = torch.zeros((b,) + p["w"].shape[2:],
                             dtype=torch.float32, device=x.device)
         state = (zeros, zeros, zeros)
 
@@ -847,8 +994,9 @@ class SLSTM:
             *state, h_c = run(wx[:, c0:c0 + ck], *state)
             hs.append(h_c)
         hs = torch.cat(hs, dim=1).to(x.dtype)          # [b,t,h,hd]
-        out = _einsum("bthk,hkd->btd", hs, p["wo"]).to(x.dtype)
-        return out, dict(zip(("c", "n", "h"), state))
+        out = reduce_from_region(_einsum("bthk,hkd->btd", hs, p["wo"]),
+                                 mesh, axes)
+        return out.to(x.dtype), dict(zip(("c", "n", "h"), state))
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
         wx = _einsum("bd,dghk->bghk", x, p["w"])

@@ -23,11 +23,12 @@ the scaled token embeddings. Enc-dec (whisper) is ``models.encdec``.
 
 Training runs ``fwd_seq`` under a remat policy and ``loss``, a chunked
 cross-entropy (``Model.train_loss`` puts them together). Over a mesh
-(``ctx["mesh"]``, ``mesh=``) the dense attention stack trains on the rank's
+(``ctx["mesh"]``, ``mesh=``) every decoder-only stack trains on the rank's
 blocks of the parameters and of the batch: the embedding lookup and the
-cross-entropy are vocab-parallel, the blocks FSDP x TP
-(``blocks.Attention``, ``blocks.SwiGLU``), every collective written out in
-``distributed.collectives``.
+cross-entropy are vocab-parallel, the blocks FSDP x TP (attention and the
+recurrent mixers heads-parallel, the dense FFN column/row-parallel, the
+MoE expert-parallel with the JAX block's token groups: ``blocks``), every
+collective written out in ``distributed.collectives``.
 """
 from __future__ import annotations
 
@@ -221,7 +222,8 @@ class LM:
         """x + the layer's FFN of x. An MoE layer appends its load-balance
         loss to the list ``aux`` where one is given (the sequence forward);
         the decode paths give none and skip computing it. ``mesh``: the
-        dense FFN on the rank's blocks."""
+        FFN on the rank's blocks (the MoE's groups and aux loss the global
+        batch's)."""
         if ld.ffn == "none":
             return x
         h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
@@ -229,7 +231,7 @@ class LM:
             return x + _SWIGLU(p["ffn"], h, mesh, self.cfg)
         if aux is None:
             return x + _MOE.forward(p["ffn"], h, self.cfg)[0]
-        y, a = _MOE(p["ffn"], h, self.cfg)
+        y, a = _MOE(p["ffn"], h, self.cfg, mesh=mesh)
         aux.append(a)
         return x + y
 
@@ -289,9 +291,9 @@ class LM:
         (the JAX LM's inner remat), so the backward of a repeat holds one
         layer's activations at a time.
 
-        ``ctx["mesh"]``: the dense attention stack over a mesh, ``params``
-        and x the rank's blocks; each weight is gathered where it is used,
-        inside the rematerialised body, so a recompute gathers again."""
+        ``ctx["mesh"]``: the stack over a mesh, ``params`` and x the rank's
+        blocks; each weight is gathered where it is used, inside the
+        rematerialised body, so a recompute gathers again."""
         cfg = self.cfg
         mesh = ctx.get("mesh")
         fetch = _index_fetch(params)

@@ -8,16 +8,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed.sharding import get_mesh, local_shard
+from repro_torch.distributed.sharding import (
+    get_mesh, local_shard, num_data_shards,
+)
 from repro_torch.models.common import Spec, tree_map, tree_shardings
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
 WHISPER_DECODER_LEN = 448   # decoder-side target length for train/prefill
 
-MESH_WAITS = ("training over a mesh covers the dense attention stack; "
-              "MoE, Mamba/xLSTM, enc-dec and VLM configs wait for ROADMAP "
-              "queue 1 item 9b'")
+MESH_WAITS = ("training over a mesh covers the decoder-only stacks; "
+              "enc-dec and VLM configs wait for ROADMAP queue 1 item 9b'")
 
 
 class Model:
@@ -44,13 +45,11 @@ class Model:
             self.specs(), self.param_shardings(mesh))
 
     def require_mesh_path(self) -> None:
-        """Raise for a config that cannot train over a mesh yet: only the
-        dense attention stack is sharded."""
+        """Raise for a config that cannot train over a mesh yet: every
+        decoder-only stack is sharded (attention, Mamba, mLSTM and sLSTM
+        mixers; dense and MoE FFNs), enc-dec and VLM configs are not."""
         cfg = self.cfg
-        dense = not cfg.is_encoder_decoder and not cfg.num_image_patches \
-            and all(ld.mixer == "attn" and ld.ffn == "dense"
-                    for ld in self.impl.pattern)
-        if not dense:
+        if cfg.is_encoder_decoder or cfg.num_image_patches:
             raise NotImplementedError(f"{cfg.name}: {MESH_WAITS}")
 
     def param_shardings(self, mesh, rules=None):
@@ -70,7 +69,9 @@ class Model:
         keys): the mean masked next-token cross-entropy plus 0.01 x the MoE
         load-balance loss, a scalar, as the JAX facade's ``train_loss``.
         Under a mesh (``mesh_context``) ``params`` and ``batch`` are the
-        rank's blocks and the loss is the global batch's."""
+        rank's blocks and the loss is the global batch's: ``batch`` is
+        placed by ``batch_shardings``, which refuses an MoE config's batch
+        that the data shards do not divide."""
         mesh = get_mesh()
         if mesh is not None:
             self.require_mesh_path()
@@ -114,9 +115,27 @@ class Model:
         return self.impl.init_decode_state(batch, max_context, device)
 
     # ------------------------------------------------------------ input specs
+    def batch_shardings(self, shape: ShapeConfig, mesh, rules=None):
+        """Each train input's ``NamedSharding`` on ``mesh`` under ``rules``:
+        its batch dim over the data axes where they divide it, else kept
+        whole (``spec_for``'s fallback). An MoE config raises ``ValueError``
+        for a batch that is not split over every data axis: its token
+        groups (``blocks.MoE.route``) read a rank's rows as its block of
+        the global batch."""
+        out = tree_shardings(self.input_spec_tree(shape), mesh, rules)
+        b, s = shape.global_batch, shape.seq_len
+        shards = num_data_shards(mesh)
+        if self.cfg.moe is not None and \
+                out["tokens"].local_shape((b, s))[0] * shards != b:
+            raise ValueError(
+                f"{self.cfg.name}: an MoE config over a mesh needs a global "
+                f"batch split over its {shards} data shards (got {b} rows)")
+        return out
+
     def input_spec_tree(self, shape: ShapeConfig):
-        """Spec tree of a train batch of the dense LM (the configs that
-        train over a mesh; enc-dec and VLM inputs wait for ROADMAP 9b'):
+        """Spec tree of a train batch of the decoder-only LM (the configs
+        that train over a mesh; enc-dec and VLM inputs wait for ROADMAP
+        9b'):
         the batch dim is logical "batch" (``launch.shardings.
         batch_shardings`` splits it over the data axes)."""
         b, s = shape.global_batch, shape.seq_len

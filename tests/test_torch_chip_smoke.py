@@ -227,8 +227,17 @@ def test_decode_check_sees_a_lost_src_len():
 @pytest.mark.parametrize("shape", sorted(chip_smoke.FLASH_SHAPES))
 def test_flash_shapes_are_the_served_models(shape):
     """Phase 2's whisper and llava flash shapes: the configs' heads, the
-    phases' batches and lengths."""
+    phases' batches and lengths; phase 17's moonshot row: a rank's heads
+    of the (2, 2) mesh and a data rank's row."""
     b, sq, sk, hq, hkv, d, causal = chip_smoke.FLASH_SHAPES[shape]
+    if shape == "moonshot_mesh_rank":
+        cfg, rows, seq, _ = chip_smoke.MOE_SSM_RUNS["moonshot"]
+        data, model = chip_smoke.MESH_LAYOUT
+        assert (hq, hkv, d) == (cfg.num_heads // model,
+                                cfg.num_kv_heads // model,
+                                cfg.resolved_head_dim)
+        assert (b, sq, sk, causal) == (rows // data, seq, seq, True)
+        return
     cfg = ARCHS["llava-next-34b" if shape == "llava_prefix"
                 else "whisper-medium"]
     assert (hq, hkv, d) == (cfg.num_heads, cfg.num_kv_heads,
@@ -633,3 +642,143 @@ def test_mesh_train_phase_is_llama3_8b_cut_in_depth():
     assert chip_smoke.MESH_LAYOUT == (2, 2) and chip_smoke.MESH_WORLD == 4
     assert (cfg.num_heads // 2, cfg.num_kv_heads // 2) == (16, 4)
     assert (chip_smoke.MESH_BATCH, chip_smoke.MESH_SEQ) == (2, 2048)
+
+
+@pytest.fixture
+def moe_ssm_on_cpu(monkeypatch):
+    """Phase 17 at a small width on the CPU (bf16): scaled moonshot (2
+    layers; a global batch of 2 x 32 tokens, one MoE group per data rank),
+    scaled jamba's layer 0 (Mamba) and scaled xlstm at 8 layers (2 x 16);
+    the decode-scale MoE batch 2 x 8 (one group over both data ranks)."""
+    def cut(arch, layers):
+        return dataclasses.replace(scaled_config(ARCHS[arch],
+                                                 num_layers=layers),
+                                   dtype="bfloat16")
+    runs = {"moonshot": (cut("moonshot-v1-16b-a3b", 2), 2, 32,
+                         "dots_saveable"),
+            "jamba": (cut("jamba-v0.1-52b", 1), 2, 32, "dots_saveable"),
+            "xlstm": (cut("xlstm-1.3b", 8), 2, 16, "none")}
+    for name, value in (("DEVICE", "cpu"), ("MOE_SSM_RUNS", runs),
+                        ("MOE_DECODE_BATCH", (2, 8))):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_moe_ssm_phase_runs(moe_ssm_on_cpu, capsys):
+    """Phase 17 on 4 gloo ranks on the CPU: the layer checks (the MoE's
+    drop pattern equal to one rank's per-group route, the decode-scale
+    batch through the count exchange), the steps against one rank and the
+    leaves pass; the step times, collectives by kind and peak memory are
+    printed."""
+    counts = chip_smoke.phase_mesh_moe_ssm()
+    assert counts["flash_attention"] == 0 and counts["ssd_scan"] == 0
+    out = capsys.readouterr().out
+    layers = [x for x in out.splitlines() if x.startswith("[moe-ssm] (a)")]
+    assert {x.split()[3] for x in layers} == {"moe_train", "moe_decode",
+                                              "mamba", "mlstm", "slstm"}
+    moe = [x for x in layers if " moe_" in x]
+    assert all("slot equal True, disp equal True" in x for x in moe)
+    assert "2 group(s)" in moe[0] and "1 group(s)" in moe[1]
+    assert "moe_counts" in moe[1] and "moe_counts" not in moe[0]
+    assert "step 0's first MoE layer: of 128 assignments" in out
+    mamba = next(x for x in layers if " mamba " in x)
+    assert "tp_all_gather" in mamba
+    steps = [x for x in out.splitlines() if x.startswith("[moe-ssm] (b)")
+             and ": loss " in x]
+    assert len(steps) == 3 * chip_smoke.MESH_STEPS
+    for name in ("moonshot", "jamba", "xlstm"):
+        assert f"[moe-ssm] (c) {name} peak memory per rank" in out
+        assert f"[moe-ssm] (b) {name} leaves after step" in out
+    # the mixers' gradients at (a), and (b)'s control
+    assert all("its leaves' gradients, row_err" in x
+               for x in layers if " moe_" not in x)
+    for name in ("moonshot", "jamba", "xlstm"):
+        assert f"[moe-ssm] (b) {name} control, one rank with its weights " \
+            f"moved by a bf16 last bit" in out
+
+
+def test_moe_ssm_phase_sees_a_wrong_drop_pattern(moe_ssm_on_cpu,
+                                                 monkeypatch):
+    """A mesh whose MoE groups differ from the reference's fails the
+    phase: here the one-rank reference groups the training batch as one
+    group (the spawned ranks import the script afresh and keep the JAX
+    block's grouping)."""
+    monkeypatch.setattr(chip_smoke, "_moe_groups", lambda cfg, t, s: 1)
+    with pytest.raises(SystemExit, match="drop pattern differs"):
+        chip_smoke.phase_mesh_moe_ssm()
+
+
+def test_moe_ssm_phase_sees_a_fault_in_one_heads_gradient(moe_ssm_on_cpu,
+                                                         monkeypatch):
+    """A fault confined to one head's rows of a leaf drawn at a tenth of
+    the scale fails the phase at (a)'s gradients: the one-rank reference's
+    sLSTM scales head 0's gradient of ``r`` by 1.1 (the spawned ranks
+    import the blocks afresh)."""
+    from repro_torch.models.blocks import SLSTM
+
+    class ScaleHead0(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r):
+            return r.view_as(r)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.clone()
+            g[0] *= 1.1
+            return g
+
+    fwd_seq = SLSTM.fwd_seq
+
+    def faulty(self, p, *args, **kwargs):
+        return fwd_seq(self, {**p, "r": ScaleHead0.apply(p["r"])}, *args,
+                       **kwargs)
+    monkeypatch.setattr(SLSTM, "fwd_seq", faulty)
+    with pytest.raises(SystemExit, match="slstm: the gradient of leaf r "):
+        chip_smoke.phase_mesh_moe_ssm()
+
+
+def test_moe_ssm_phase_runs_are_cut_in_depth_only():
+    """Phase 17 runs moonshot-v1-16b-a3b (2 of 48 layers, 1.81 B params),
+    jamba-v0.1-52b's layer 0 (Mamba and a dense FFN, 0.81 B) and
+    xlstm-1.3b (8 of 48 layers, 0.35 B) at full width on phase 16's (2, 2)
+    mesh: 32 experts, 64 Mamba heads and 2 xLSTM heads a rank."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    want = {"moonshot": ("moonshot-v1-16b-a3b", 2, 1.81, 2048),
+            "jamba": ("jamba-v0.1-52b", 1, 0.81, 2048),
+            "xlstm": ("xlstm-1.3b", 8, 0.35, 512)}
+    assert set(chip_smoke.MOE_SSM_RUNS) == set(want)
+    for name, (cfg, b, s, _) in chip_smoke.MOE_SSM_RUNS.items():
+        arch, layers, params, seq = want[name]
+        full = ARCHS[arch]
+        assert dataclasses.replace(cfg, num_layers=full.num_layers) == full
+        assert cfg.num_layers == layers and (b, s) == (2, seq)
+        model = build_model(cfg)
+        n = sum(int(np.prod(x.shape)) for x in tree_leaves(model.specs()))
+        assert round(n / 1e9, 2) == params, (name, n)
+    pattern = build_model(chip_smoke.MOE_SSM_RUNS["jamba"][0]).impl.pattern
+    assert [(ld.mixer, ld.ffn) for ld in pattern] == [("mamba", "dense")]
+    assert chip_smoke.MESH_LAYOUT == (2, 2)
+    b, s = chip_smoke.MOE_DECODE_BATCH
+    moe = ARCHS["moonshot-v1-16b-a3b"].moe
+    assert b * s * moe.top_k <= 8 * moe.num_experts
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.SSD_RANK_SHAPES))
+def test_ssd_rank_shapes_are_phase_17s(name):
+    """Phase 2's ssd_scan rows at the ranks' shapes: jamba's Mamba (d_in /
+    64 heads split over "model", d_state, one data rank's 2048 tokens) and
+    xlstm's mLSTM (its heads split, head_dim and head_dim + 1)."""
+    from repro_torch.models.blocks import Mamba
+    b, t, h, dk, dv, mlstm = chip_smoke.SSD_RANK_SHAPES[name]
+    data, model = chip_smoke.MESH_LAYOUT
+    run = "jamba" if name.startswith("jamba") else "xlstm"
+    cfg, rows, seq, _ = chip_smoke.MOE_SSM_RUNS[run]
+    assert (b, t) == (rows // data, seq)
+    if run == "jamba":
+        _, heads, n = Mamba().dims(cfg)
+        assert (h, dk, dv, mlstm) == (heads // model, n, Mamba.HEAD_DIM,
+                                      False)
+    else:
+        hd = cfg.resolved_head_dim
+        assert (h, dk, dv, mlstm) == (cfg.num_heads // model, hd, hd + 1,
+                                      True)

@@ -1,8 +1,9 @@
 """Moving the port's train state between meshes on gloo ranks on the CPU
-(the twin of ``tests/test_elastic_restore.py``): scaled llama3-8b (2
-layers, f32) initialised on a (2, 2) world of 4 ranks and saved from the
-mesh writes the files a one-rank save of the same init writes, byte for
-byte; that checkpoint restores onto a 2-rank world's ``host_layout(2)``
+(the twin of ``tests/test_elastic_restore.py``): scaled llama3-8b and
+scaled moonshot (MoE; 2 layers, f32) initialised on a (2, 2) world of 4
+ranks and saved from the mesh write the files a one-rank save of the same
+init writes, byte for byte; those checkpoints restore onto a 2-rank
+world's ``host_layout(2)``
 with diff 0; ``elastic_reshard`` moves the live params (2, 2) -> (4, 1)
 -> (2, 2) with diff 0; Adafactor's factored statistics, saved after a step
 on (2, 2), restore onto (4, 1) under ``opt_shardings``' specs equal to the
@@ -38,23 +39,35 @@ def runs(tmp_path_factory):
     out2 = str(tmp / "restore%d.json")
     spawn_ranks(tm.restore_rank, 2, ckpt, out2)
     two = [json.load(open(out2 % r)) for r in range(2)]
-    # the one-rank save of the same init
-    model = build_model(tm.cfg())
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    state = make_optimizer(OptimizerConfig(name="adamw")).init(params)
-    one = str(tmp / "one")
-    checkpoint.save(one, 0, {"params": params, "opt": state})
-    return {"four": four, "two": two, "ckpt": ckpt, "one": one}
+    # the one-rank saves of the same inits
+    ones = {}
+    for sub, c in (("adamw", tm.cfg()), ("moe", tm.moe_cfg())):
+        model = build_model(c)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        state = make_optimizer(OptimizerConfig(name="adamw")).init(params)
+        ones[sub] = str(tmp / "one" / sub)
+        checkpoint.save(ones[sub], 0, {"params": params, "opt": state})
+    return {"four": four, "two": two, "ckpt": ckpt, "one": ones}
 
 
-def test_mesh_checkpoint_is_byte_identical_to_one_rank(runs):
-    mesh_dir = os.path.join(runs["ckpt"], "adamw", "step_00000000")
-    one_dir = os.path.join(runs["one"], "step_00000000")
+def _same_files(runs, sub):
+    mesh_dir = os.path.join(runs["ckpt"], sub, "step_00000000")
+    one_dir = os.path.join(runs["one"][sub], "step_00000000")
     names = sorted(os.listdir(one_dir))
     assert names == sorted(os.listdir(mesh_dir)) and len(names) > 20
     match, mismatch, errors = filecmp.cmpfiles(one_dir, mesh_dir, names,
                                                shallow=False)
     assert mismatch == [] and errors == [] and len(match) == len(names)
+
+
+def test_mesh_checkpoint_is_byte_identical_to_one_rank(runs):
+    _same_files(runs, "adamw")
+
+
+def test_moe_mesh_checkpoint_is_byte_identical_to_one_rank(runs):
+    """Scaled moonshot: its expert leaves split over "model" and their d
+    dim over "data" on the mesh."""
+    _same_files(runs, "moe")
 
 
 def test_restore_onto_a_smaller_world(runs):
@@ -63,6 +76,14 @@ def test_restore_onto_a_smaller_world(runs):
         assert res["params"] == 0.0 and res["opt"] == 0.0
     # the embed [512, 128] is split over "data" on its embed dim
     assert runs["two"][0]["blocks"][0] == [512, 64]
+
+
+def test_moe_restore_onto_a_smaller_world(runs):
+    for res in runs["two"]:
+        assert res["moe_params"] == 0.0 and res["moe_opt"] == 0.0
+    # moonshot's first expert leaf w_in [2, 8, 128, 64]: its d dim over
+    # the 2 data ranks
+    assert [2, 8, 64, 64] in runs["two"][0]["moe_blocks"]
 
 
 @pytest.mark.parametrize("key", ["reshard_41", "reshard_back"])

@@ -270,21 +270,45 @@ def test_step_watchdog_flags_slow_steps():
     assert wd.events == [ev] and wd.baseline == pytest.approx(2.125)
 
 
-def test_elastic_reshard_waits_for_meshes():
-    """Meshes of MoE configs wait for ROADMAP 9b': their shardings, which
-    ``elastic_reshard`` moves a tree between, are refused; the dense
-    stack's move on a one-rank world is the identity."""
+def test_elastic_reshard_moves_expert_leaves(tmp_path):
+    """Scaled moonshot's parameters have shardings now (ROADMAP 9b'):
+    ``elastic_reshard`` on 2 gloo ranks moves its expert leaves from (2,
+    1), where each expert's d dim splits over "data", to (1, 2), where the
+    experts split over "model", and back, each block equal to the rank's
+    block of one rank's init; on a one-rank world the move is the
+    identity."""
+    import json
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_mesh as tmesh
+    from repro_torch.launch.mesh import spawn_ranks
+    out = str(tmp_path / "move%d.json")
+    spawn_ranks(tmesh.expert_move_rank, 2, out)
+    for r in range(2):
+        res = json.load(open(out % r))
+        assert res["to_model"] == 0.0 and res["back"] == 0.0, res
+        # w_in [R, E, d, f] = [2, 8, 128, 64]: d over 2 data ranks, then
+        # the 8 experts over 2 model ranks
+        assert res["shapes"] == [[2, 8, 64, 64], [2, 4, 128, 64]]
     moe = build_model(tcfgs.scaled_config(
         tcfgs.ARCHS["moonshot-v1-16b-a3b"], num_layers=2))
-    with pytest.raises(NotImplementedError, match="9b'"):
-        moe.param_shardings(host_layout(1))
-    tm = build_model(tcfgs.scaled_config(tcfgs.ARCHS["llama3-8b"],
-                                         num_layers=2))
-    sh = tm.param_shardings(host_layout(1))
-    params = tm.init(torch.Generator().manual_seed(0), "cpu")
+    sh = moe.param_shardings(host_layout(1))
+    params = moe.init(torch.Generator().manual_seed(0), "cpu")
     moved = elastic_reshard(params, sh, sh)
     assert all(a is b for a, b in zip(tree_leaves(moved),
                                       tree_leaves(params)))
+
+
+@pytest.mark.parametrize("name", ["whisper-medium", "llava-next-34b"])
+def test_encdec_and_vlm_meshes_wait(name):
+    """Enc-dec and VLM configs still wait for ROADMAP 9b': their
+    shardings, which ``elastic_reshard`` moves a tree between, and their
+    loss under a mesh are refused."""
+    model = build_model(tcfgs.scaled_config(tcfgs.ARCHS[name],
+                                            num_layers=2))
+    with pytest.raises(NotImplementedError, match="9b'"):
+        model.param_shardings(host_layout(1))
 
 
 # ---------------------------------------------------------------- launch
@@ -306,6 +330,37 @@ def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resuming from step 2" in out and "'step': 3" in out
     assert checkpoint.latest_step(str(tmp_path)) == 4
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,layers,width", [
+    ([], 32, 4096),
+    (["--layers", "3"], 3, 4096),
+    (["--scaled"], 4, 128),
+    (["--scaled", "--layers", "3"], 3, 128),
+])
+def test_launch_train_layers_without_scaled_cuts_the_published_config(
+        monkeypatch, argv, layers, width):
+    """``--layers`` cuts the model with or without ``--scaled``: without
+    it the published width runs at that depth (a deliberate difference:
+    the reference's launcher reads ``--layers`` only with ``--scaled``;
+    the card's training phases run full-width llama3-8b cut in depth).
+    The config is read where the model is built, before any weight
+    exists."""
+    seen = {}
+
+    def build(cfg):
+        seen["cfg"] = cfg
+        raise _Built
+
+    monkeypatch.setattr(launch_train, "build_model", build)
+    with pytest.raises(_Built):
+        launch_train.main(["--device", "cpu"] + argv)
+    cfg = seen["cfg"]
+    assert (cfg.num_layers, cfg.d_model) == (layers, width)
 
 
 @pytest.mark.parametrize("mesh", ["single_pod", "multi_pod"])

@@ -47,19 +47,21 @@ def paths(tree, prefix: str = ""):
     return _paths(tree, prefix)
 
 
-def make_batches(seed: int = 0) -> dict:
+def make_batches(seed: int = 0, vocab: int = 0, batch: int = BATCH,
+                 seq: int = SEQ, prefix: str = "") -> dict:
     """STEPS global batches (tokens, targets, a mask with a few zeros),
-    keyed "batch{i}/{name}", from one numpy generator."""
+    keyed "{prefix}batch{i}/{name}", from one numpy generator (``vocab``:
+    the config's by default)."""
     rng = np.random.default_rng(seed)
-    vocab = cfg().vocab_size
+    vocab = vocab or cfg().vocab_size
     z = {}
     for i in range(STEPS):
-        toks = rng.integers(0, vocab, (BATCH, SEQ + 1), dtype=np.int32)
-        mask = np.ones((BATCH, SEQ), np.float32)
+        toks = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
+        mask = np.ones((batch, seq), np.float32)
         mask[:, :i + 1] = 0.0
-        z[f"batch{i}/tokens"] = toks[:, :-1].copy()
-        z[f"batch{i}/targets"] = toks[:, 1:].copy()
-        z[f"batch{i}/mask"] = mask
+        z[f"{prefix}batch{i}/tokens"] = toks[:, :-1].copy()
+        z[f"{prefix}batch{i}/targets"] = toks[:, 1:].copy()
+        z[f"{prefix}batch{i}/mask"] = mask
     return z
 
 
@@ -74,12 +76,14 @@ def _unflatten(like, flat: dict):
     return _map_paths(lambda key, _: flat[key], like)
 
 
-def train(z: dict, mesh, opt_name: str):
-    """STEPS steps of ``make_train_step`` from the params "params/..." of
-    ``z`` on the batches of ``make_batches`` (the rank's blocks of both on
-    ``mesh``; one rank where it is None). Returns (losses, grad norms, the
-    params and the optimizer state gathered whole, the collectives' byte
-    counts of the last step)."""
+def train(z: dict, mesh, opt_name: str, model_cfg=None, batch: int = BATCH,
+          seq: int = SEQ, prefix: str = ""):
+    """STEPS steps of ``make_train_step`` from the params
+    "{prefix}params/..." of ``z`` on the batches "{prefix}batch{i}/..." of
+    ``make_batches`` (the rank's blocks of both on ``mesh``; one rank where
+    it is None), of ``model_cfg`` (default: ``cfg()``). Returns (losses,
+    grad norms, the params and the optimizer state gathered whole, the
+    collectives' byte counts of the last step)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import collectives
@@ -92,9 +96,9 @@ def train(z: dict, mesh, opt_name: str):
     from repro_torch.training import (
         OptimizerConfig, make_optimizer, make_train_step,
     )
-    model = build_model(cfg())
-    shape = ShapeConfig("t", SEQ, BATCH, "train")
-    full = _unflatten(model.specs(), _tensors(z, "params/"))
+    model = build_model(model_cfg or cfg())
+    shape = ShapeConfig("t", seq, batch, "train")
+    full = _unflatten(model.specs(), _tensors(z, prefix + "params/"))
     opt = make_optimizer(OptimizerConfig(name=opt_name, **OPT_KW[opt_name]))
     losses, norms = [], []
     with mesh_context(mesh):
@@ -108,12 +112,12 @@ def train(z: dict, mesh, opt_name: str):
         state = opt.init(params, ps)
         step = make_train_step(model, opt, remat_policy="dots_saveable")
         for i in range(STEPS):
-            batch = _tensors(z, f"batch{i}/")
+            b = _tensors(z, f"{prefix}batch{i}/")
             if bs is not None:
-                batch = {k: local_shard(v, bs[k].spec, mesh)
-                         for k, v in batch.items()}
+                b = {k: local_shard(v, bs[k].spec, mesh)
+                     for k, v in b.items()}
             collectives.reset_counts()
-            params, state, m = step(params, state, batch)
+            params, state, m = step(params, state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         counts = collectives.counts()
@@ -206,6 +210,15 @@ def elastic_rank(rank: int, ckpt_dir: str, out: str) -> None:
     res["reshard_41"] = diff(moved, s41)
     res["shapes_41"] = [list(x.shape) for x in tree_leaves(moved)][:3]
     res["reshard_back"] = diff(elastic_reshard(moved, s41, s22), s22)
+    # scaled moonshot (MoE) saved from (2, 2): the test holds the files to
+    # a one-rank save of the same init
+    moe = build_model(moe_cfg())
+    mp = moe.init(torch.Generator().manual_seed(0), "cpu", m22)
+    ms = moe.param_shardings(m22)
+    mst = opt.init(mp, ms)
+    checkpoint.save(ckpt_dir + "/moe", 0, {"params": mp, "opt": mst},
+                    shardings={"params": ms,
+                               "opt": opt_shardings(mst, ms, m22)})
     # Adafactor: one step on (2, 2), then its factored statistics moved
     ada = make_optimizer(OptimizerConfig(name="adafactor",
                                          **OPT_KW["adafactor"]))
@@ -248,10 +261,15 @@ def elastic_rank(rank: int, ckpt_dir: str, out: str) -> None:
         json.dump(res, f)
 
 
+def moe_cfg():
+    from repro_torch.configs import ARCHS, scaled_config
+    return scaled_config(ARCHS["moonshot-v1-16b-a3b"], num_layers=2)
+
+
 def restore_rank(rank: int, ckpt_dir: str, out: str) -> None:
-    """One of 2 gloo ranks: the (2, 2) world's checkpoint restored onto
-    ``host_layout(2)``, each block against the rank's block of the
-    one-rank init."""
+    """One of 2 gloo ranks: the (2, 2) world's checkpoints (scaled llama
+    and scaled moonshot) restored onto ``host_layout(2)``, each block
+    against the rank's block of the one-rank init."""
     import torch
     from repro_torch.launch.mesh import host_layout, make_mesh
     from repro_torch.launch.shardings import opt_shardings
@@ -262,24 +280,60 @@ def restore_rank(rank: int, ckpt_dir: str, out: str) -> None:
         OptimizerConfig, checkpoint, make_optimizer,
     )
     warnings.simplefilter("ignore", RuntimeWarning)
-    model = build_model(cfg())
     layout = host_layout(2)
     mesh = make_mesh(layout, "cpu")
-    ps = model.param_shardings(mesh)
-    whole = model.init(torch.Generator().manual_seed(0), "cpu")
-    like = model.init(torch.Generator().manual_seed(9), "cpu", mesh)
     opt = make_optimizer(OptimizerConfig(name="adamw"))
-    st = opt.init(like, ps)
-    tree, _ = checkpoint.restore(
-        ckpt_dir + "/adamw", 0, {"params": like, "opt": st},
-        shardings={"params": ps, "opt": opt_shardings(st, ps, mesh)})
-    res = {"layout": list(layout.sizes),
-           "params": max(float((a - local_shard(b, s.spec, mesh)).abs().max())
-                         for a, b, s in zip(tree_leaves(tree["params"]),
-                                            tree_leaves(whole),
-                                            tree_leaves(ps))),
-           "opt": max(float(x.abs().max())
-                      for x in tree_leaves(tree["opt"])),
-           "blocks": [list(x.shape) for x in tree_leaves(tree["params"])]}
+    res = {"layout": list(layout.sizes)}
+    for tag, c, sub in (("", cfg(), "/adamw"), ("moe_", moe_cfg(), "/moe")):
+        model = build_model(c)
+        ps = model.param_shardings(mesh)
+        whole = model.init(torch.Generator().manual_seed(0), "cpu")
+        like = model.init(torch.Generator().manual_seed(9), "cpu", mesh)
+        st = opt.init(like, ps)
+        tree, _ = checkpoint.restore(
+            ckpt_dir + sub, 0, {"params": like, "opt": st},
+            shardings={"params": ps, "opt": opt_shardings(st, ps, mesh)})
+        res[tag + "params"] = max(
+            float((a - local_shard(b, s.spec, mesh)).abs().max())
+            for a, b, s in zip(tree_leaves(tree["params"]),
+                               tree_leaves(whole), tree_leaves(ps)))
+        res[tag + "opt"] = max(float(x.abs().max())
+                               for x in tree_leaves(tree["opt"]))
+        res[tag + "blocks"] = [list(x.shape)
+                               for x in tree_leaves(tree["params"])]
+    with open(out % rank, "w") as f:
+        json.dump(res, f)
+
+
+def expert_move_rank(rank: int, out: str) -> None:
+    """One of 2 gloo ranks: scaled moonshot's params initialised on (2, 1),
+    moved to (1, 2) and back with ``elastic_reshard``; the largest
+    difference of each move's blocks from the rank's blocks of one rank's
+    init, and the first expert leaf's block shapes, to ``out`` % rank."""
+    import torch
+    from repro_torch.configs import ARCHS, scaled_config
+    from repro_torch.distributed import elastic_reshard
+    from repro_torch.distributed.sharding import MeshLayout, local_shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    warnings.simplefilter("ignore", RuntimeWarning)
+    model = build_model(scaled_config(ARCHS["moonshot-v1-16b-a3b"],
+                                      num_layers=2))
+    m21 = make_mesh(MeshLayout(AXES, (2, 1)), "cpu")
+    m12 = make_mesh(MeshLayout(AXES, (1, 2)), "cpu")
+    s21, s12 = model.param_shardings(m21), model.param_shardings(m12)
+    whole = model.init(torch.Generator().manual_seed(0), "cpu")
+    params = model.init(torch.Generator().manual_seed(0), "cpu", m21)
+
+    def diff(tree, shardings):
+        return max(float((a - local_shard(b, s.spec, s.mesh)).abs().max())
+                   for a, b, s in zip(tree_leaves(tree), tree_leaves(whole),
+                                      tree_leaves(shardings)))
+    moved = elastic_reshard(params, s21, s12)
+    back = elastic_reshard(moved, s12, s21)
+    res = {"to_model": diff(moved, s12), "back": diff(back, s21),
+           "shapes": [list(params["blocks"][0]["ffn"]["w_in"].shape),
+                      list(moved["blocks"][0]["ffn"]["w_in"].shape)]}
     with open(out % rank, "w") as f:
         json.dump(res, f)
