@@ -156,7 +156,17 @@ no CUDA device or any phase fails. Phases:
    their updates); (c) step times (forward, backward, optimizer),
    collectives by kind, peak memory and flash/ssd_scan launches a rank.
    Phase 2 holds flash and ssd_scan at the ranks' shapes.
-18. the kernels line (JSON; launches summed over phases 3-17; each kernel's
+18. mesh training of the enc-dec and VLM configs on the same mesh, each
+   held to one rank as in phase 17: whisper-medium (4 + 4 of its 24 + 24
+   layers; 2 rows of 4096 frames, split over "model" as the input spec's
+   "seq_cp" places them, and 448 tokens; its odd vocabulary stays whole)
+   and llava-next-34b (1 of 60 layers; 2 x 4096 positions, 2880 of them
+   patch rows). (a) whisper's encoder layer, its decoder layer over that
+   encoder (the encoder's leaves reached only through cross-attention)
+   and llava's layer on the mesh against one rank, every leaf's gradient
+   row by row; (b) and (c) as in phase 17. Phase 2 holds flash at the
+   ranks' shapes.
+19. the kernels line (JSON; launches summed over phases 3-18; each kernel's
    ``shapes`` lists phase 2's timed shape rows and phases 14 and 16's
    flash rows) and, last, the result line (JSON).
 """
@@ -939,6 +949,14 @@ FLASH_SHAPES = {
     # phase 17's moonshot attention on a rank of the (2, 2) mesh: 8 of its
     # 16 heads (G = 1), one 2048-token row
     "moonshot_mesh_rank": (1, 2048, 2048, 8, 8, 128, True),
+    # phase 18's on a rank of the same mesh: whisper's encoder over one
+    # row of 4096 frames, its decoder's 448 tokens and their cross-attention
+    # against the frames, 8 of its 16 heads; llava's 4096 positions, 28 of
+    # its 56 query heads and 4 of its 8 KV heads
+    "whisper_mesh_encoder": (1, 4096, 4096, 8, 8, 64, False),
+    "whisper_mesh_decoder": (1, 448, 448, 8, 8, 64, True),
+    "whisper_mesh_cross": (1, 448, 4096, 8, 8, 64, False),
+    "llava_mesh_rank": (1, 4096, 4096, 28, 4, 128, True),
 }
 
 
@@ -1636,8 +1654,11 @@ def _init(cfg, seed: int, tag: str, detail: str):
                         DEVICE)
     _sync()
     leaves = tree_leaves(params)
+    # an enc-dec's pattern is ["encdec"]
+    pattern = [ld if isinstance(ld, str) else f"{ld.mixer}/{ld.ffn}"
+               for ld in model.impl.pattern]
     log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers ({model.repeats} x "
-        f"{[f'{ld.mixer}/{ld.ffn}' for ld in model.impl.pattern]}), d_model "
+        f"{pattern}), d_model "
         f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x "
         f"{cfg.resolved_head_dim}, {detail}vocab {cfg.vocab_size}, "
         f"{cfg.dtype}; {sum(x.numel() for x in leaves) / 1e9:.3f} B params, "
@@ -3419,7 +3440,32 @@ def _moe_ssm_spec() -> dict:
     arguments)."""
     return {"device": DEVICE, "runs": MOE_SSM_RUNS, "steps": MESH_STEPS,
             "layout": MESH_LAYOUT, "seed": MOE_SSM_SEED,
-            "decode_batch": MOE_DECODE_BATCH}
+            "decode_batch": MOE_DECODE_BATCH, "tag": "moe-ssm"}
+
+
+# phase 18: enc-dec and VLM training on phase 16's (2, 2) mesh of
+# MESH_WORLD ranks against one rank, at full width, bf16, AdamW (TRAIN_OPT)
+# with dots_saveable, MESH_STEPS steps: whisper-medium cut to 4 + 4 of its
+# 24 + 24 layers (0.26 B params), a global batch of 2 of train_4k's rows
+# (4096 frames, split over "model" as the input spec's "seq_cp" places
+# them, and 448 decoder tokens; its odd vocabulary of 51865 stays whole);
+# llava-next-34b cut to 1 of its 60 layers (1.48 B), 2 x 4096 positions
+# (2880 patch rows and 1216 tokens)
+ENCDEC_VLM_RUNS = {
+    "whisper": (dataclasses.replace(ARCHS["whisper-medium"], num_layers=4,
+                                    num_encoder_layers=4), 2, 4096,
+                TRAIN_REMAT),
+    "llava": (dataclasses.replace(ARCHS["llava-next-34b"], num_layers=1), 2,
+              4096, TRAIN_REMAT),
+}
+ENCDEC_VLM_SEED = 19
+
+
+def _encdec_vlm_spec() -> dict:
+    """What a phase-18 rank needs."""
+    return {"device": DEVICE, "runs": ENCDEC_VLM_RUNS, "steps": MESH_STEPS,
+            "layout": MESH_LAYOUT, "seed": ENCDEC_VLM_SEED,
+            "tag": "encdec-vlm"}
 
 
 def _moe_groups(cfg, tokens: int, shards: int) -> int:
@@ -3434,8 +3480,13 @@ def _moe_groups(cfg, tokens: int, shards: int) -> int:
 def _layer_checks(name: str, model, sp: dict):
     """(a)'s layer checks of run ``name``: (tag, pattern position, batch,
     tokens a row). The MoE at the training batch and at the decode-scale
-    one; the Mamba layer; an mLSTM and the sLSTM layer."""
+    one; the Mamba layer; an mLSTM and the sLSTM layer; an enc-dec's
+    encoder layer and its decoder layer over it; a VLM's layer."""
     _, b, s, _ = sp["runs"][name]
+    if model.cfg.is_encoder_decoder:
+        return [("encoder", 0, b, s), ("decoder", 0, b, s)]
+    if model.cfg.num_image_patches:
+        return [("layer", 0, b, s)]
     out = []
     for pos, ld in enumerate(model.impl.pattern):
         if ld.ffn == "moe" and pos == 0:
@@ -3444,6 +3495,88 @@ def _layer_checks(name: str, model, sp: dict):
         if ld.mixer in ("mamba", "slstm") or (ld.mixer == "mlstm"
                                               and pos == 0):
             out.append((ld.mixer, pos, b, s))
+    return out
+
+
+# phase 18's layer checks: the parameters each one differentiates
+STACK_CHECKS = {"encoder": ("encoder", "enc_norm"),
+                "decoder": ("encoder", "enc_norm", "blocks"),
+                "layer": ("blocks",)}
+
+
+def _stack_check(cfg, params, check, sp: dict, mesh=None, shardings=None):
+    """A phase-18 layer check, on one rank or, with ``mesh``, on the rank's
+    blocks of the weights and of the inputs (one body): the model's own
+    code cut to depth 1 (whisper's encoder layer 0 alone, or feeding its
+    decoder layer 0, whose encoder leaves the output reaches only through
+    cross-attention; llava's layer) forward and backward under an output
+    gradient ``dy`` seeded as the inputs, in f32 (the weights widened;
+    the kernels run their f32 paths): in bf16 one rank's own rounding
+    moves these gradients, two layers deep, by 0.03-0.04 of their rows
+    from f32's, above the 2e-2 limit, so a bf16 check could not tell a
+    fault from rounding. Returns the output, the gradient of every leaf of
+    ``STACK_CHECKS[tag]`` (keyed by path), both whole (on the mesh the
+    gradients summed over the data axes that do not split the leaf, then
+    gathered) on the device, and the check's collectives."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.collectives import gather_over, sum_over
+    from repro_torch.distributed.sharding import (
+        batch_axis_names, gather_full, local_shard,
+    )
+    from repro_torch.launch.shardings import batch_shardings
+    from repro_torch.models.registry import WHISPER_DECODER_LEN
+    from repro_torch.training.checkpoint import _paths
+    tag, _, b, s = check
+    dev, seed = sp["device"], sp["seed"]
+    cfg = dataclasses.replace(
+        cfg, num_layers=1, num_encoder_layers=min(cfg.num_encoder_layers, 1),
+        dtype="float32")
+    cut = build_model(cfg)
+    names = STACK_CHECKS[tag]
+    tree = {k: tree_map(lambda t: (t[:1] if k in ("encoder", "blocks")
+                                   else t).detach().float()
+                        .requires_grad_(),
+                        params[k]) for k in names}
+    keys, leaves = zip(*_paths(tree))
+    data = () if mesh is None else batch_axis_names(mesh)
+    bs = None if mesh is None else batch_shardings(
+        cut, ShapeConfig("check", s, b, "train"), mesh)
+
+    def rows(x):
+        """This data rank's rows of the whole input ``x``."""
+        return x if mesh is None else local_shard(x, bs["mask"].spec, mesh)
+    collectives.reset_counts()
+    with torch.enable_grad():
+        if cfg.is_encoder_decoder:
+            frames = _layer_input(cfg, seed, f"{tag} frames", b, s, dev)
+            axes = ()
+            if mesh is not None:
+                frames = local_shard(frames, bs["frames"].spec, mesh)
+                axes = bs["frames"].axes(1)
+            y = cut.impl.encode(tree, frames, mesh, axes)
+            if tag == "decoder":
+                x = rows(_layer_input(cfg, seed, f"{tag} x", b,
+                                      min(WHISPER_DECODER_LEN, s), dev))
+                y, _ = cut.impl.dec_seq(tree, x, y, mesh=mesh)
+        else:
+            x = rows(_layer_input(cfg, seed, tag, b, s, dev))
+            positions = torch.arange(s, device=dev)[None].expand(
+                x.shape[0], s)
+            y, _, _ = cut.impl.fwd_seq(tree, x, {"positions": positions,
+                                                 "mesh": mesh})
+        dy = rows(_layer_input(cfg, seed, f"{tag} dy", b, y.shape[1], dev))
+        grads = torch.autograd.grad((y.float() * dy.float()).sum(), leaves)
+    out = {"collectives": {k: v for k, v in collectives.counts().items()
+                           if k != "check"}}
+    y = y.detach()
+    if mesh is not None:
+        sh = [x for _, x in _paths({k: shardings[k] for k in names})]
+        grads = [gather_full(sum_over(
+            g, mesh, [ax for ax in data if ax not in h.split_axes()],
+            "check"), h.spec, mesh) for g, h in zip(grads, sh)]
+        y = gather_over(y, mesh, data, "check").reshape(
+            (b,) + y.shape[1:])
+    out.update(y=y, grads=dict(zip(keys, grads)))
     return out
 
 
@@ -3464,6 +3597,11 @@ def _layer_ref(cfg, model, params, check, seed: int, shards: int) -> dict:
     ``shards`` data shards, ``route`` on each group's tokens), its slot,
     disp (tokens in the global numbering) and drops, and the drops of one
     group over every token."""
+    if check[0] in STACK_CHECKS:
+        got = _stack_check(cfg, params, check, {"device": DEVICE,
+                                                "seed": seed})
+        return {"y": got["y"].cpu(),
+                "grads": {k: g.cpu() for k, g in got["grads"].items()}}
     tag, pos, b, s = check
     x = _layer_input(cfg, seed, tag, b, s, DEVICE)
     ld = model.impl.pattern[pos]
@@ -3543,20 +3681,20 @@ def _control(name, cfg, sp, ref_dir, batches, remat) -> None:
     rounding moves its activations), its leaves held to the reference's
     by ``row_err``; printed."""
     from repro_torch.training.checkpoint import _paths
-    model, params = _init(cfg, sp["seed"], f"moe-ssm-ctl {name}", "")
+    model, params = _init(cfg, sp["seed"], f"{sp['tag']}-ctl {name}", "")
     gen = torch.Generator(device=DEVICE).manual_seed(sp["seed"] + 1)
     for leaf in tree_leaves(params):
         sign = torch.randint(0, 2, leaf.shape, generator=gen,
                              device=DEVICE) * 2 - 1
         leaf.copy_(leaf.float() * (1 + sign * 2.0 ** -8))
-    train_run(f"moe-ssm-ctl {name}", model, params, batches, remat=remat)
+    train_run(f"{sp['tag']}-ctl {name}", model, params, batches, remat=remat)
     ref = dict(_ref_leaves(os.path.join(ref_dir, name), sp["steps"]))
     worst = {False: (0.0, ""), True: (0.0, "")}
     for (key, leaf), (_, spec) in zip(_paths(params), _paths(model.specs())):
         small = spec.init in SMALL_INITS
         worst[small] = max(worst[small], (row_err(
             leaf, ref.pop(key).to(leaf.device)), key))
-    log(f"[moe-ssm] (b) {name} control, one rank with its weights moved by "
+    log(f"[{sp['tag']}] (b) {name} control, one rank with its weights moved by "
         f"a bf16 last bit against one rank, after step {sp['steps']}: "
         f"worst row_err {worst[False][0]:.3g} at {worst[False][1]}; the "
         f"leaves drawn at zero or a tenth of the scale {worst[True][0]:.3g} "
@@ -3573,7 +3711,8 @@ def moe_ssm_reference(name: str, ref_dir: str, sp: dict) -> tuple:
     results)."""
     cfg, b, s, remat = sp["runs"][name]
     _reset_peak()
-    model, params = _init(cfg, sp["seed"], f"moe-ssm-ref {name}",
+    tag = f"{sp['tag']}-ref {name}"
+    model, params = _init(cfg, sp["seed"], tag,
                           f"d_ff {cfg.d_ff}, ")
     layers = {check[0]: _layer_ref(cfg, model, params, check, sp["seed"],
                                    sp["layout"][0])
@@ -3581,15 +3720,16 @@ def moe_ssm_reference(name: str, ref_dir: str, sp: dict) -> tuple:
     torch.save(layers, os.path.join(ref_dir, f"{name}_layers.pt"))
     batches = _mesh_batches(model, {"device": DEVICE, "seq": s, "batch": b,
                                     "steps": sp["steps"]})
-    if any(ld.ffn == "moe" for ld in model.impl.pattern):
+    if cfg.moe is not None and any(ld.ffn == "moe"
+                                   for ld in model.impl.pattern):
         n, mesh_drops, one_drops = _moe_step0_drops(
             cfg, model, params, batches[0], sp["layout"][0])
-        log(f"[moe-ssm-ref {name}] step 0's first MoE layer: of {n} "
+        log(f"[{tag}] step 0's first MoE layer: of {n} "
             f"assignments the mesh's groups drop {mesh_drops}, one group of "
             f"all {b * s} tokens (one rank's) {one_drops}")
-    recs, counts, _ = train_run(f"moe-ssm-ref {name}", model, params,
+    recs, counts, _ = train_run(tag, model, params,
                                 batches, remat=remat)
-    log(f"[moe-ssm-ref {name}] peak memory {_peak() / 2**30:.2f} GiB")
+    log(f"[{tag}] peak memory {_peak() / 2**30:.2f} GiB")
     checkpoint.save(os.path.join(ref_dir, name), sp["steps"], params)
     del params, model
     _free()
@@ -3613,6 +3753,15 @@ def _mesh_layer(cfg, model, params, ps, check, sp, mesh, ref):
         batch_axis_names, gather_full, mesh_index,
     )
     from repro_torch.models.blocks import _gathered
+    if check[0] in STACK_CHECKS:
+        got = _stack_check(cfg, params, check, sp, mesh, ps)
+        res = {"collectives": got["collectives"]}
+        if ref is not None:
+            res["row_err"] = row_err(got["y"], ref["y"].to(got["y"].device))
+            res["grad_row_err"] = {
+                k: row_err(g, ref["grads"][k].to(g.device))
+                for k, g in got["grads"].items()}
+        return res
     tag, pos, b, s = check
     dev = sp["device"]
     data = mesh_index(mesh, ("data",))
@@ -3731,7 +3880,8 @@ def moe_ssm_rank(rank: int, sp: dict, ref_dir: str, out: str) -> None:
             opt, marks, grad_max = instrument_step(
                 model, make_optimizer(OptimizerConfig(**TRAIN_OPT)))
             state = opt.init(params, ps)
-            step = make_train_step(model, opt, remat_policy=remat)
+            step = make_train_step(model, opt, remat_policy=remat,
+                                   batch_shardings=bs)
             kernels.reset_launch_counts()
             recs = []
             for batch in batches:
@@ -3787,13 +3937,13 @@ def moe_ssm_rank(rank: int, sp: dict, ref_dir: str, out: str) -> None:
 
 
 def _check_moe_ssm_run(name: str, sp: dict, ref_recs, recs) -> None:
-    """The checks and lines of one run of phase 17 (rank 0 holds the
+    """The checks and lines of one run of phase 17 or 18 (rank 0 holds the
     comparisons)."""
     cfg, b, s, _ = sp["runs"][name]
     r0 = recs[0]["runs"][name]
     tol = ROW_RTOL[torch.bfloat16]
     for tag, lay in r0["layers"].items():
-        line = (f"[moe-ssm] (a) {name} {tag} layer on the mesh against one "
+        line = (f"[{sp['tag']}] (a) {name} {tag} layer on the mesh against one "
                 f"rank: row_err {lay['row_err']:.3g} (limit {tol})")
         if tag.startswith("moe"):
             line += (f"; {lay['groups']} group(s) of capacity {lay['cap']}, "
@@ -3812,23 +3962,23 @@ def _check_moe_ssm_run(name: str, sp: dict, ref_recs, recs) -> None:
                                             sorted(grads.items())))
         log(line)
         if not lay["row_err"] <= tol:
-            fail(f"moe-ssm {name} {tag}: row_err {lay['row_err']} > {tol}")
+            fail(f"{sp['tag']} {name} {tag}: row_err {lay['row_err']} > {tol}")
         for k, v in sorted(grads.items()):
             if not v <= tol:
-                fail(f"moe-ssm {name} {tag}: the gradient of leaf {k} off "
+                fail(f"{sp['tag']} {name} {tag}: the gradient of leaf {k} off "
                      f"one rank's: row_err {v} > {tol}")
         if tag.startswith("moe") and not (lay["slot_equal"]
                                           and lay["disp_equal"]):
-            fail(f"moe-ssm {name} {tag}: the drop pattern differs from "
+            fail(f"{sp['tag']} {name} {tag}: the drop pattern differs from "
                  f"one rank's per-group route")
     if "moe_decode" in r0["layers"] and \
             "moe_counts" not in r0["layers"]["moe_decode"]["collectives"]:
-        fail(f"moe-ssm {name}: the decode-scale batch made no count "
+        fail(f"{sp['tag']} {name}: the decode-scale batch made no count "
              f"exchange")
     for i, (ref, got) in enumerate(zip(ref_recs, r0["steps"])):
         le = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
         ge = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
-        log(f"[moe-ssm] (b) {name} step {i}: loss {got['loss']:.5f} vs one "
+        log(f"[{sp['tag']}] (b) {name} step {i}: loss {got['loss']:.5f} vs one "
             f"rank's {ref['loss']:.5f} (rel err {le:.3g}, limit "
             f"{MESH_LOSS_RTOL}); grad norm {got['grad_norm']:.5f} vs "
             f"{ref['grad_norm']:.5f} (rel err {ge:.3g}, limit "
@@ -3839,7 +3989,7 @@ def _check_moe_ssm_run(name: str, sp: dict, ref_recs, recs) -> None:
             f"(forward {ref['fwd_ms']:.1f}, backward {ref['bwd_ms']:.1f}, "
             f"optimizer {ref['opt_ms']:.1f})")
         if not (le <= MESH_LOSS_RTOL and ge <= MESH_GNORM_RTOL):
-            fail(f"moe-ssm {name} step {i}: loss or grad norm off one "
+            fail(f"{sp['tag']} {name} step {i}: loss or grad norm off one "
                  f"rank's: {got['loss']} vs {ref['loss']}, "
                  f"{got['grad_norm']} vs {ref['grad_norm']}")
     bad = [(rec["rank"], i) for rec in recs
@@ -3847,17 +3997,17 @@ def _check_moe_ssm_run(name: str, sp: dict, ref_recs, recs) -> None:
            if not (np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"]))
            or st["zero_grad_leaves"]]
     if bad:
-        fail(f"moe-ssm {name}: a non-finite loss or norm, or a leaf whose "
+        fail(f"{sp['tag']} {name}: a non-finite loss or norm, or a leaf whose "
              f"local gradient is all zero (rank, step): {bad}")
     last = r0["steps"][-1]["collectives"]
-    log(f"[moe-ssm] (c) {name} {cfg.num_layers} layers on a "
+    log(f"[{sp['tag']}] (c) {name} {cfg.num_layers} layers on a "
         f"{tuple(sp['layout'])} (data, model) mesh of {MESH_WORLD} ranks, "
         f"global batch {b} x {s}: collectives of rank 0's last step "
         f"(calls, MB): " + ", ".join(
             f"{k} {v['calls']} {v['bytes'] / 1e6:.1f}"
             for k, v in sorted(last.items()))
         + f"; {sum(v['bytes'] for v in last.values()) / 1e9:.3f} GB in all")
-    log(f"[moe-ssm] (c) {name} peak memory per rank (GiB): " + ", ".join(
+    log(f"[{sp['tag']}] (c) {name} peak memory per rank (GiB): " + ", ".join(
         f"{rec['runs'][name]['peak_gib']:.2f}" for rec in recs)
         + "; step ms per rank (last step, CUDA events): " + ", ".join(
             f"{rec['runs'][name]['steps'][-1]['step_ms']:.1f}"
@@ -3870,34 +4020,33 @@ def _check_moe_ssm_run(name: str, sp: dict, ref_recs, recs) -> None:
     err, key = r0["leaf_row_err"]
     serr, skey = r0["small_leaf_row_err"]
     uerr, ukey = r0["leaf_update_err"]
-    log(f"[moe-ssm] (b) {name} leaves after step {sp['steps']} against one "
+    log(f"[{sp['tag']}] (b) {name} leaves after step {sp['steps']} against one "
         f"rank's: worst row_err {err:.3g} at {key} (limit {tol}; the leaves "
         f"drawn at zero or a tenth of the scale, held by (a)'s gradients "
         f"and their update: {serr:.3g} at {skey or 'none'}); worst update "
         f"error {uerr:.3g} at {ukey} (limit {MESH_UPDATE_RTOL}; no update "
         f"reads 1)")
     if not err <= tol:
-        fail(f"moe-ssm {name}: leaf {key} row_err {err} > {tol}")
+        fail(f"{sp['tag']} {name}: leaf {key} row_err {err} > {tol}")
     if not uerr <= MESH_UPDATE_RTOL:
-        fail(f"moe-ssm {name}: leaf {ukey}'s update off one rank's: {uerr} "
+        fail(f"{sp['tag']} {name}: leaf {ukey}'s update off one rank's: {uerr} "
              f"> {MESH_UPDATE_RTOL}")
     if DEVICE == "cuda":
-        kernel = "flash_attention" if any(
+        kernel = "flash_attention" if cfg.is_encoder_decoder or any(
             ld.mixer == "attn" for ld in build_model(cfg).impl.pattern) \
             else "ssd_scan"
         if not all(rec["runs"][name]["launches"].get(kernel)
                    for rec in recs):
-            fail(f"moe-ssm {name}: {kernel} never launched on some rank")
+            fail(f"{sp['tag']} {name}: {kernel} never launched on some rank")
 
 
-def phase_mesh_moe_ssm():
-    """Phase 17: each run's one-rank reference (a, b), then every run on
-    ``MESH_WORLD`` ranks sharing the card (``moe_ssm_rank``); the checks.
-    Returns the launch counts of the one-rank runs and of every rank's
-    steps."""
+def _phase_mesh_runs(sp: dict):
+    """Phases 17 and 18: each run's one-rank reference (a, b), then every
+    run of ``sp["runs"]`` on ``MESH_WORLD`` ranks sharing the card
+    (``moe_ssm_rank``); the checks. Returns the launch counts of the
+    one-rank runs and of every rank's steps."""
     import tempfile
     card = _card()
-    sp = _moe_ssm_spec()
     counts = Counter()
     with tempfile.TemporaryDirectory() as tmp:
         refs = {}
@@ -3906,22 +4055,32 @@ def phase_mesh_moe_ssm():
             recs, c, _ = moe_ssm_reference(name, tmp, sp)
             refs[name] = recs
             counts.update(c)
-            log(f"[moe-ssm] {name} one rank took "
+            log(f"[{sp['tag']}] {name} one rank took "
                 f"{time.perf_counter() - t0:.1f} s on {card}")
         t0 = time.perf_counter()
-        out = os.path.join(tmp, "moe_ssm_rank%d.json")
+        out = os.path.join(tmp, "mesh_rank%d.json")
         spawn_ranks(moe_ssm_rank, MESH_WORLD, sp, tmp, out)
         recs = []
         for r in range(MESH_WORLD):
             with open(out % r) as f:
                 recs.append(json.load(f))
-        log(f"[moe-ssm] the runs on {MESH_WORLD} ranks took "
+        log(f"[{sp['tag']}] the runs on {MESH_WORLD} ranks took "
             f"{time.perf_counter() - t0:.1f} s on {card}")
     for name in sp["runs"]:
         _check_moe_ssm_run(name, sp, refs[name], recs)
         for rec in recs:
             counts.update(rec["runs"][name]["launches"])
     return counts
+
+
+def phase_mesh_moe_ssm():
+    """Phase 17 (``_phase_mesh_runs`` of ``MOE_SSM_RUNS``)."""
+    return _phase_mesh_runs(_moe_ssm_spec())
+
+
+def phase_mesh_encdec_vlm():
+    """Phase 18 (``_phase_mesh_runs`` of ``ENCDEC_VLM_RUNS``)."""
+    return _phase_mesh_runs(_encdec_vlm_spec())
 
 
 def _card() -> str:
@@ -3940,8 +4099,8 @@ def main() -> None:
     phase_build()
     checked, shape_rows = phase_kernels()
     # launches summed over every serving phase's runs, phase 14's two
-    # training runs, phase 15's serve CLI and phases 16 and 17's runs on
-    # one rank and on each rank of the mesh (each resets the counts just
+    # training runs, phase 15's serve CLI and phases 16-18's runs on one
+    # rank and on each rank of the mesh (each resets the counts just
     # before it runs and reads them just after)
     launches = Counter()
     for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
@@ -3953,6 +4112,7 @@ def main() -> None:
     launches.update(phase_distributed())
     launches.update(phase_mesh_train(shape_rows))
     launches.update(phase_mesh_moe_ssm())
+    launches.update(phase_mesh_encdec_vlm())
     log(f"[launches] every serving, training and CLI phase: "
         f"{dict(launches)}")
     rows = []

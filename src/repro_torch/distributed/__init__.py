@@ -1,10 +1,10 @@
 """Distributed support of the port: the logical-axis sharding rules, the
 ambient mesh and a spec's blocks on a live mesh (``sharding``), mesh
 training's collectives (``collectives``), the closed-form cost model
-(``analytic_cost``) and the fault-tolerance loop. The names below load on
+(``analytic_cost``), the collective statistics of a step
+(``hlo_analysis``) and the fault-tolerance loop. The names below load on
 first use, so that the model blocks can read the mesh context without
-pulling in the training stack that ``fault_tolerance`` imports. The HLO
-analysis waits for ROADMAP queue 1 item 9c."""
+pulling in the training stack that ``fault_tolerance`` imports."""
 _EXPORTS = {
     **{name: "sharding" for name in (
         "ShardingRules", "DEFAULT_RULES", "SERVING_RULES", "MeshLayout",
@@ -17,6 +17,8 @@ _EXPORTS = {
     **{name: "analytic_cost" for name in (
         "StepCost", "cost_for", "decode_cost", "prefill_cost", "train_cost",
         "decode_collective_bytes", "prefill_collective_bytes")},
+    **{name: "hlo_analysis" for name in (
+        "COLLECTIVE_OPS", "CollectiveStats", "collective_stats")},
     **{name: "fault_tolerance" for name in (
         "StepWatchdog", "StragglerEvent", "TrainRunner", "elastic_reshard")},
 }

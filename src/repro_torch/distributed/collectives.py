@@ -25,7 +25,12 @@ Each is a ``torch.autograd.Function`` over a process group of a
 
 Every call counts the bytes of the tensor it reduces or produces on this
 rank, by kind (``counts``): an all-gather the gathered tensor, an
-all-reduce its tensor, a reduce-scatter its full input. The collectives run
+all-reduce its tensor, a reduce-scatter its full input. It also counts, by
+the op's name in the reference's HLO (``op_counts``: "all-reduce",
+"all-gather", "reduce-scatter"), the bytes of its result on this rank, the
+rule of ``repro.distributed.hlo_analysis``: a reduce-scatter counts its
+rank's block, 1/n of its input (``distributed.hlo_analysis`` reads these).
+The collectives run
 on gloo or NCCL alike: gloo takes CUDA tensors for
 ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and ``all_reduce``
 (SUM and MAX), as ``tools/gloo_cuda_probe.py`` shows on the H100, and moves
@@ -48,11 +53,14 @@ from repro_torch.distributed.sharding import (
 
 _BYTES: Counter = Counter()
 _CALLS: Counter = Counter()
+# by op name: calls and result bytes
+_OP_BYTES: Counter = Counter()
+_OP_CALLS: Counter = Counter()
 
 
 def reset_counts() -> None:
-    _BYTES.clear()
-    _CALLS.clear()
+    for c in (_BYTES, _CALLS, _OP_BYTES, _OP_CALLS):
+        c.clear()
 
 
 def counts() -> Dict[str, Dict[str, int]]:
@@ -60,9 +68,23 @@ def counts() -> Dict[str, Dict[str, int]]:
     return {k: {"calls": _CALLS[k], "bytes": _BYTES[k]} for k in _CALLS}
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def op_counts() -> Dict[str, Dict[str, int]]:
+    """{op: {"calls", "bytes"}} since the last ``reset_counts``: each
+    call's result bytes on this rank, by the reference's HLO op name."""
+    return {k: {"calls": _OP_CALLS[k], "bytes": _OP_BYTES[k]}
+            for k in _OP_CALLS}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(kind: str, t: torch.Tensor, op: str,
+           result: torch.Tensor) -> None:
     _CALLS[kind] += 1
-    _BYTES[kind] += t.numel() * t.element_size()
+    _BYTES[kind] += _nbytes(t)
+    _OP_CALLS[op] += 1
+    _OP_BYTES[op] += _nbytes(result)
 
 
 def _wide(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -78,14 +100,14 @@ def _wide(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
 def all_sum(t: torch.Tensor, group, kind: str) -> torch.Tensor:
     """``t`` summed over ``group`` (a new tensor, in ``t``'s dtype)."""
     w = _wide(t)
-    _count(kind, w)
+    _count(kind, w, "all-reduce", w)
     dist.all_reduce(w, group=group)
     return w if w.dtype == t.dtype else w.to(t.dtype)
 
 
 def all_max(t: torch.Tensor, group, kind: str) -> torch.Tensor:
     t = t.clone(memory_format=torch.contiguous_format)
-    _count(kind, t)
+    _count(kind, t, "all-reduce", t)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
@@ -99,7 +121,7 @@ def all_gather_dim(x: torch.Tensor, group, dim: int,
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + x.shape[1:])
     dist.all_gather_into_tensor(out, x, group=group)
-    _count(kind, out)
+    _count(kind, out, "all-gather", out)
     return out.movedim(0, dim)
 
 
@@ -109,8 +131,8 @@ def reduce_scatter_dim(x: torch.Tensor, group, dim: int,
     (``reduce_scatter_tensor``), in ``x``'s dtype and contiguous."""
     n = dist.get_world_size(group)
     w = _wide(x, dim)
-    _count(kind, w)
     out = w.new_empty((w.shape[0] // n,) + w.shape[1:])
+    _count(kind, w, "reduce-scatter", out)
     dist.reduce_scatter_tensor(out, w, group=group)
     return out.movedim(0, dim).to(x.dtype,
                                   memory_format=torch.contiguous_format)

@@ -17,8 +17,8 @@ data (the pipeline is keyed by step).
 Meshes: in a process group of several ranks (started by
 ``launch.mesh.spawn_ranks``, or by a launcher such as ``torchrun
 --nproc-per-node N -m repro_torch.launch.train``, whose environment
-``launch.mesh.init_from_env`` reads), ``--mesh host`` trains any
-decoder-only config (dense, MoE, Mamba hybrid, xLSTM) over
+``launch.mesh.init_from_env`` reads), ``--mesh host`` trains any config
+(dense, MoE, Mamba hybrid, xLSTM, enc-dec, VLM) over
 ``make_host_mesh()``: (N/2, 2) ("data", "model") from four ranks up, FSDP
 x TP (x expert parallelism) under the train rules; alone, on one device.
 An MoE config's ``--batch`` must split over the data shards
@@ -107,7 +107,8 @@ def main(argv=None):
         state_sh = None if mesh is None else {
             "params": p_sh, "opt": opt_shardings(opt_state, p_sh, mesh)}
         step_fn = make_train_step(model, opt, remat_policy=args.remat,
-                                  microbatches=args.microbatches)
+                                  microbatches=args.microbatches,
+                                  batch_shardings=b_sh)
 
         def batch_fn(step):
             s = 0 if args.fixed_batch else step

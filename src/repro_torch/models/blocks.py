@@ -103,30 +103,25 @@ class Attention:
         """Prefill over a full sequence. ctx: dict with 'positions' [B, S]
         (= arange, the positions the flash kernel assumes), an optional
         'bidirectional' flag and, for cross-attention, 'enc_out' [B, Senc,
-        D]. On CUDA the attention is the hand-written flash kernel; on the
-        CPU its plain version (the JAX model calls the same plain function
-        at blocks.py:115 and :123). Returns (y, cache {k, v}).
+        D]: q from the decoder rows x, k/v from the encoder's rows, no
+        RoPE, unmasked (Sq = S against Sk = Senc). On CUDA the attention is
+        the hand-written flash kernel; on the CPU its plain version (the
+        JAX model calls the same plain function at blocks.py:115 and
+        :123). Returns (y, cache {k, v}).
 
-        ``ctx["mesh"]``: self-attention on the rank's blocks of the weights
+        ``ctx["mesh"]``: the block on the rank's blocks of the weights
         (``_gathered``): q/k/v column-parallel over the heads' axes, ``wo``
         row-parallel, its partial sums reduced over them. Each spec is read
         as the fallback left it: heads that stay whole run on every rank,
         with no collective. Where the query heads split and the KV heads
         stay whole, each rank takes the KV heads its query heads read,
         through a *copy to region* of wk/wv whose backward sums their
-        partial gradients over the heads' axes. With no mesh every
-        collective is the identity."""
-        if self.cross:
-            # Sq = S decoder rows against Sk = Senc encoder rows, unmasked;
-            # the projections come out contiguous, as the kernel's TMA maps
-            # need
-            enc = ctx["enc_out"]
-            q = _einsum("bsd,dhk->bshk", x, p["wq"]).to(x.dtype).contiguous()
-            k, v = (_einsum("bsd,dhk->bshk", enc, p[w]).to(x.dtype)
-                    .contiguous() for w in ("wk", "wv"))
-            out = flash_attention(q, k, v, causal=False)
-            y = _einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
-            return y, {"k": k, "v": v}
+        partial gradients over the heads' axes. The activations that enter
+        the region (x, and the encoder's output, whole on every rank of
+        those axes) enter through a *copy to region* too, so that their
+        gradients are the sums over the heads' axes: the encoder's leaves,
+        which the decoder reaches only through cross-attention, get the
+        whole gradient. With no mesh every collective is the identity."""
         mesh = ctx.get("mesh")
         w, sp = _gathered(self, p, cfg, mesh)
         axes = spec_axes(sp["wq"], 1)
@@ -139,12 +134,24 @@ class Attention:
                                    mesh_index(mesh, axes))
             w = dict(w, **{n: copy_to_region(w[n], mesh, axes)[:, heads]
                            for n in ("wk", "wv")})
-        positions = ctx["positions"]
-        q, k, v = self._qkv(w, copy_to_region(x, mesh, axes), cfg)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        causal = not ctx.get("bidirectional", False)
-        out = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+        x_in = copy_to_region(x, mesh, axes)
+        if self.cross:
+            # the projections come out contiguous, as the kernel's TMA maps
+            # need
+            enc = copy_to_region(ctx["enc_out"], mesh, axes)
+            q = _einsum("bsd,dhk->bshk", x_in, w["wq"]).to(x.dtype)\
+                .contiguous()
+            k, v = (_einsum("bsd,dhk->bshk", enc, w[n]).to(x.dtype)
+                    .contiguous() for n in ("wk", "wv"))
+            out = flash_attention(q, k, v, causal=False)
+        else:
+            positions = ctx["positions"]
+            q, k, v = self._qkv(w, x_in, cfg)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+            causal = not ctx.get("bidirectional", False)
+            out = flash_attention(q, k, v, causal=causal,
+                                  window=cfg.sliding_window)
         y = reduce_from_region(_einsum("bshk,hkd->bsd", out, w["wo"]),
                                mesh, axes)
         return y.to(x.dtype), {"k": k, "v": v}

@@ -13,8 +13,16 @@ cross cache stays in the decode state.
 
 The dense decode state is updated IN PLACE (the self-attention caches take
 the new token's row where they lie), as in ``LM.decode_step``. ``loss`` is
-the training objective: the decoder's mean masked cross-entropy over its
-full logits, as in the reference.
+the training objective: the decoder's mean masked cross-entropy, as in the
+reference, through the LM's chunked cross-entropy (``lm.VocabEnds``), so
+[B, S, V] logits never exist.
+
+Over a mesh (``mesh=``) the model trains on the rank's blocks of the
+parameters and of the batch, as the LM does: the encoder and the decoder
+layers FSDP x TP (attention heads-parallel, cross-attention included, the
+FFN column/row-parallel), the embedding lookup and the cross-entropy
+vocab-parallel (``lm.VocabEnds``). The frames arrive as the rank's block of
+their sequence (the input spec's "seq_cp"); the encoder gathers them whole.
 """
 from __future__ import annotations
 
@@ -23,18 +31,20 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import Attention, SwiGLU, _einsum, rms_norm
+from repro_torch.distributed.collectives import all_gather_dim
+from repro_torch.distributed.sharding import mesh_group
+from repro_torch.models.blocks import Attention, SwiGLU, rms_norm
 from repro_torch.models.common import (
     Spec, dtype_of, remat, stack_specs, tree_init, tree_map,
 )
-from repro_torch.models.lm import _index, _index_fetch
+from repro_torch.models.lm import VocabEnds, _index, _index_fetch
 
 _SELF = Attention()
 _CROSS = Attention(cross=True)
 _FFN = SwiGLU()
 
 
-class EncDec:
+class EncDec(VocabEnds):
     """Encoder-decoder; methods are functions of (params, state, inputs)."""
 
     # the engine's paged path needs a decoder-only attention stack
@@ -88,41 +98,50 @@ class EncDec:
         return tree_init(self.specs(), generator, device)
 
     # ---------------------------------------------------------------- encoder
-    def encode(self, params, frames):
-        """frames [B, S_enc, D] (stub frontend output) -> enc_out."""
+    def encode(self, params, frames, mesh=None, frames_axes=()):
+        """frames [B, S_enc, D] (stub frontend output) -> enc_out. Under a
+        ``mesh`` the rank's blocks of the weights and its rows of the batch;
+        ``frames_axes``: the mesh axes that split the frames' sequence (the
+        rank holds its block), gathered whole before layer 0 (the
+        positions are those of the whole sequence)."""
         cfg = self.cfg
-        b, s, _ = frames.shape
         x = frames.to(dtype_of(cfg))
+        if frames_axes:
+            x = all_gather_dim(x, mesh_group(mesh, frames_axes), 1,
+                               "frames_all_gather")
+        b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        ctx = {"positions": positions, "bidirectional": True}
+        ctx = {"positions": positions, "bidirectional": True, "mesh": mesh}
         for i in range(cfg.num_encoder_layers):
             p = _index(params["encoder"], i)
             h, _ = _SELF.fwd_seq(p["attn"], rms_norm(x, p["norm1"],
                                                      cfg.norm_eps), ctx, cfg)
             x = x + h
-            x = x + _FFN(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+            x = x + _FFN(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                         mesh, cfg)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     # ---------------------------------------------------------------- decoder
-    def embed(self, params, tokens, prefix_embeds=None):
-        """tokens [B, S] -> x [B, S, D] (``prefix_embeds`` is ignored, as in
-        the reference)."""
-        x = params["embed"][tokens.long()].to(dtype_of(self.cfg))
-        return x * (self.cfg.d_model ** 0.5)
+    def embed(self, params, tokens, prefix_embeds=None, mesh=None):
+        """tokens [B, S] -> x [B, S, D], the LM's lookup (vocab-parallel on
+        a ``mesh``); ``prefix_embeds`` is ignored, as in the reference."""
+        return super().embed(params, tokens, mesh=mesh)
 
     def dec_seq(self, params, x, enc_out, remat_policy=None,
-                collect_cache: bool = False):
+                collect_cache: bool = False, mesh=None):
         """Decoder over x [B, S, D] against enc_out -> (x, caches | None):
         caches {"self", "cross"}, each {k, v} stacked over the repeats
         [R, B, S or S_enc, Hkv, hd], as the JAX scan returns them.
         ``remat_policy`` applies to each decoder layer (``common.remat``),
-        as the JAX decoder checkpoints its scan body."""
+        as the JAX decoder checkpoints its scan body; under a ``mesh`` the
+        layer's gathers and collectives run inside the checkpointed body,
+        so a recompute gathers again."""
         cfg = self.cfg
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        ctx = {"positions": positions, "enc_out": enc_out}
+        ctx = {"positions": positions, "enc_out": enc_out, "mesh": mesh}
 
         def body(x, p):
             h, self_cache = _SELF.fwd_seq(
@@ -131,7 +150,8 @@ class EncDec:
             h, cross_cache = _CROSS.fwd_seq(
                 p["cross"], rms_norm(x, p["norm_x"], cfg.norm_eps), ctx, cfg)
             x = x + h
-            x = x + _FFN(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+            x = x + _FFN(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                         mesh, cfg)
             return x, {"self": self_cache, "cross": cross_cache}
 
         step = remat(body, remat_policy)
@@ -145,25 +165,18 @@ class EncDec:
         return x, caches
 
     def loss(self, params, frames, tokens, targets, mask,
-             remat_policy="dots_saveable"):
+             remat_policy="dots_saveable", mesh=None, frames_axes=()):
         """Mean masked cross-entropy of the decoder's next-token logits
-        (full [B, S, V] logits, as in the reference) after encoding
-        ``frames``; a scalar. The reference's loss always checkpoints the
-        decoder with dots_saveable; here the caller's policy applies (the
-        value is the same)."""
-        enc_out = self.encode(params, frames)
-        x = self.embed(params, tokens)
-        x, _ = self.dec_seq(params, x, enc_out, remat_policy=remat_policy)
-        h = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        logits = _einsum("bsd,dv->bsv", h, params["out"])
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-        return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
-
-    def logits_last(self, params, x_last):
-        """x_last [B, D] -> [B, V] (f32)."""
-        h = rms_norm(x_last, params["final_norm"], self.cfg.norm_eps)
-        return _einsum("bd,dv->bv", h, params["out"])
+        after encoding ``frames``; a scalar. The reference's loss always
+        checkpoints the decoder with dots_saveable; here the caller's
+        policy applies (the value is the same). ``mesh`` and
+        ``frames_axes``: as ``encode``; the cross-entropy is the global
+        batch's mean (``VocabEnds.token_loss``)."""
+        enc_out = self.encode(params, frames, mesh, frames_axes)
+        x = self.embed(params, tokens, mesh=mesh)
+        x, _ = self.dec_seq(params, x, enc_out, remat_policy=remat_policy,
+                            mesh=mesh)
+        return self.token_loss(params, x, targets, mask, mesh=mesh)
 
     # ------------------------------------------------------------ decode path
     def decode_state_specs(self, batch: int,

@@ -21,14 +21,15 @@ A VLM (llava) is this LM with a prefix: precomputed patch embeddings
 (``prefix_embeds`` [B, P, D], the stub of its vision frontend) go ahead of
 the scaled token embeddings. Enc-dec (whisper) is ``models.encdec``.
 
-Training runs ``fwd_seq`` under a remat policy and ``loss``, a chunked
-cross-entropy (``Model.train_loss`` puts them together). Over a mesh
-(``ctx["mesh"]``, ``mesh=``) every decoder-only stack trains on the rank's
-blocks of the parameters and of the batch: the embedding lookup and the
-cross-entropy are vocab-parallel, the blocks FSDP x TP (attention and the
-recurrent mixers heads-parallel, the dense FFN column/row-parallel, the
-MoE expert-parallel with the JAX block's token groups: ``blocks``), every
-collective written out in ``distributed.collectives``.
+Training runs ``fwd_seq`` under a remat policy and ``token_loss``, a
+chunked cross-entropy (``Model.train_loss`` puts them together). Over a
+mesh (``ctx["mesh"]``, ``mesh=``) every stack trains on the rank's blocks
+of the parameters and of the batch: the embedding lookup and the
+cross-entropy are vocab-parallel (``VocabEnds``, which ``models.encdec``
+shares), the blocks FSDP x TP (attention and the recurrent mixers
+heads-parallel, the dense FFN column/row-parallel, the MoE expert-parallel
+with the JAX block's token groups: ``blocks``), every collective written
+out in ``distributed.collectives``.
 """
 from __future__ import annotations
 
@@ -145,39 +146,15 @@ def _ce_chunk(mesh, axes, v0, h, w, targets, mask):
     return ((m + torch.log(se) - gold) * mask).sum(), mask.sum()
 
 
-class LM:
-    """Decoder-only LM; methods are functions of (params, state, inputs)."""
+class VocabEnds:
+    """The two ends of a decoder that meet the vocabulary, shared by ``LM``
+    and ``encdec.EncDec``: the embedding lookup, the last position's
+    logits and the chunked cross-entropy. Over a ``mesh`` the lookup and
+    the cross-entropy are vocab-parallel (each weight FSDP-gathered where
+    it is used); with no mesh every collective is the identity. A subclass
+    has ``cfg`` and ``specs()`` with "embed" [V, D], "final_norm" and,
+    unless ``cfg.tie_embeddings``, "out" [D, V]."""
 
-    def __init__(self, cfg: ModelConfig):
-        self.cfg = cfg
-        if cfg.is_encoder_decoder:
-            raise ValueError(f"{cfg.name}: an encoder-decoder config is "
-                             "models.encdec.EncDec, not LM")
-        self.pattern, self.repeats = block_pattern(cfg)
-        # only attention stacks can decode against the paged KV pool
-        self.attention_only = all(ld.mixer == "attn" for ld in self.pattern)
-
-    # ------------------------------------------------------------------ specs
-    def specs(self) -> Dict[str, Any]:
-        cfg = self.cfg
-        dt = dtype_of(cfg)
-        s: Dict[str, Any] = {
-            "embed": Spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
-                          dt, fan_in=cfg.d_model),
-            "final_norm": Spec((cfg.d_model,), ("norm",), torch.float32, "ones"),
-            "blocks": tuple(
-                stack_specs(_layer_specs(ld, cfg), self.repeats)
-                for ld in self.pattern),
-        }
-        if not cfg.tie_embeddings:
-            s["out"] = Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
-                            dt, fan_in=cfg.d_model)
-        return s
-
-    def init(self, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
-        return tree_init(self.specs(), generator, device)
-
-    # --------------------------------------------------------------- embed/out
     def _spec(self, name: str, mesh):
         """The spec of leaf ``name`` on ``mesh`` (nothing split with no
         mesh)."""
@@ -217,26 +194,8 @@ class LM:
         h = rms_norm(x_last, params["final_norm"], self.cfg.norm_eps)
         return _einsum("bd,dv->bv", h, self._out_w(params))
 
-    # ----------------------------------------------------------------- layers
-    def _ffn(self, ld: LayerDef, p, x, aux=None, mesh=None):
-        """x + the layer's FFN of x. An MoE layer appends its load-balance
-        loss to the list ``aux`` where one is given (the sequence forward);
-        the decode paths give none and skip computing it. ``mesh``: the
-        FFN on the rank's blocks (the MoE's groups and aux loss the global
-        batch's)."""
-        if ld.ffn == "none":
-            return x
-        h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
-        if ld.ffn == "dense":
-            return x + _SWIGLU(p["ffn"], h, mesh, self.cfg)
-        if aux is None:
-            return x + _MOE.forward(p["ffn"], h, self.cfg)[0]
-        y, a = _MOE(p["ffn"], h, self.cfg, mesh=mesh)
-        aux.append(a)
-        return x + y
-
-    # ------------------------------------------------------------- training
-    def loss(self, params, x, targets, mask, chunk: int = 512, mesh=None):
+    def token_loss(self, params, x, targets, mask, chunk: int = 512,
+                   mesh=None):
         """Mean masked next-token cross-entropy of x [B, S, D] against
         targets [B, S] (mask [B, S] f32), a scalar, as the JAX loss returns.
         Chunked over the sequence, each chunk checkpointed when autograd is
@@ -274,6 +233,57 @@ class LM:
         tot = reduce_from_region(tot, mesh, data, "loss_all_reduce")
         cnt = sum_over(cnt, mesh, data, "loss_all_reduce")
         return tot / cnt.clamp_min(1.0)
+
+
+class LM(VocabEnds):
+    """Decoder-only LM; methods are functions of (params, state, inputs)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name}: an encoder-decoder config is "
+                             "models.encdec.EncDec, not LM")
+        self.pattern, self.repeats = block_pattern(cfg)
+        # only attention stacks can decode against the paged KV pool
+        self.attention_only = all(ld.mixer == "attn" for ld in self.pattern)
+
+    # ------------------------------------------------------------------ specs
+    def specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        dt = dtype_of(cfg)
+        s: Dict[str, Any] = {
+            "embed": Spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          dt, fan_in=cfg.d_model),
+            "final_norm": Spec((cfg.d_model,), ("norm",), torch.float32, "ones"),
+            "blocks": tuple(
+                stack_specs(_layer_specs(ld, cfg), self.repeats)
+                for ld in self.pattern),
+        }
+        if not cfg.tie_embeddings:
+            s["out"] = Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                            dt, fan_in=cfg.d_model)
+        return s
+
+    def init(self, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+        return tree_init(self.specs(), generator, device)
+
+    # ----------------------------------------------------------------- layers
+    def _ffn(self, ld: LayerDef, p, x, aux=None, mesh=None):
+        """x + the layer's FFN of x. An MoE layer appends its load-balance
+        loss to the list ``aux`` where one is given (the sequence forward);
+        the decode paths give none and skip computing it. ``mesh``: the
+        FFN on the rank's blocks (the MoE's groups and aux loss the global
+        batch's)."""
+        if ld.ffn == "none":
+            return x
+        h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
+        if ld.ffn == "dense":
+            return x + _SWIGLU(p["ffn"], h, mesh, self.cfg)
+        if aux is None:
+            return x + _MOE.forward(p["ffn"], h, self.cfg)[0]
+        y, a = _MOE(p["ffn"], h, self.cfg, mesh=mesh)
+        aux.append(a)
+        return x + y
 
     # ------------------------------------------------------------ seq forward
     def fwd_seq(self, params, x, ctx, remat_policy=None,

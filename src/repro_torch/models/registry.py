@@ -11,14 +11,13 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.sharding import (
     get_mesh, local_shard, num_data_shards,
 )
-from repro_torch.models.common import Spec, tree_map, tree_shardings
+from repro_torch.models.common import (
+    Spec, dtype_of, tree_map, tree_shardings,
+)
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
 WHISPER_DECODER_LEN = 448   # decoder-side target length for train/prefill
-
-MESH_WAITS = ("training over a mesh covers the decoder-only stacks; "
-              "enc-dec and VLM configs wait for ROADMAP queue 1 item 9b'")
 
 
 class Model:
@@ -44,19 +43,10 @@ class Model:
                 spec.materialize(generator, device), sh.spec, mesh),
             self.specs(), self.param_shardings(mesh))
 
-    def require_mesh_path(self) -> None:
-        """Raise for a config that cannot train over a mesh yet: every
-        decoder-only stack is sharded (attention, Mamba, mLSTM and sLSTM
-        mixers; dense and MoE FFNs), enc-dec and VLM configs are not."""
-        cfg = self.cfg
-        if cfg.is_encoder_decoder or cfg.num_image_patches:
-            raise NotImplementedError(f"{cfg.name}: {MESH_WAITS}")
-
     def param_shardings(self, mesh, rules=None):
         """The ``NamedSharding`` of every parameter on ``mesh`` under
         ``rules`` (default: the ambient context's), the train profile's
         FSDP x TP placement with the divisibility fallback."""
-        self.require_mesh_path()
         return tree_shardings(self.specs(), mesh, rules)
 
     @property
@@ -64,21 +54,33 @@ class Model:
         return self.impl.repeats
 
     # ------------------------------------------------------------------ train
-    def train_loss(self, params, batch, remat_policy: str = "dots_saveable"):
+    def train_loss(self, params, batch, remat_policy: str = "dots_saveable",
+                   batch_shardings=None):
         """The training objective of one batch (``training.batch_for_step``'s
         keys): the mean masked next-token cross-entropy plus 0.01 x the MoE
         load-balance loss, a scalar, as the JAX facade's ``train_loss``.
         Under a mesh (``mesh_context``) ``params`` and ``batch`` are the
         rank's blocks and the loss is the global batch's: ``batch`` is
-        placed by ``batch_shardings``, which refuses an MoE config's batch
-        that the data shards do not divide."""
+        placed by ``launch.shardings.batch_shardings``, which refuses an MoE
+        config's batch that the data shards do not divide. An enc-dec
+        config needs that placement here as ``batch_shardings``: its
+        encoder gathers the frames over the axes that split their
+        sequence."""
         mesh = get_mesh()
-        if mesh is not None:
-            self.require_mesh_path()
         if self.cfg.is_encoder_decoder:
+            frames_axes = ()
+            if mesh is not None:
+                if batch_shardings is None:
+                    raise ValueError(
+                        f"{self.cfg.name}: an enc-dec batch over a mesh needs "
+                        "its shardings (launch.shardings.batch_shardings): "
+                        "the encoder gathers the frames over the axes that "
+                        "split their sequence")
+                frames_axes = batch_shardings["frames"].axes(1)
             return self.impl.loss(params, batch["frames"], batch["tokens"],
                                   batch["targets"], batch["mask"],
-                                  remat_policy=remat_policy)
+                                  remat_policy=remat_policy, mesh=mesh,
+                                  frames_axes=frames_axes)
         x = self.impl.embed(params, batch["tokens"],
                             batch.get("patch_embeds"), mesh=mesh)
         b, s, _ = x.shape
@@ -87,8 +89,8 @@ class Model:
         x, aux, _ = self.impl.fwd_seq(
             params, x, {"positions": positions, "mesh": mesh},
             remat_policy=remat_policy)
-        loss = self.impl.loss(params, x, batch["targets"], batch["mask"],
-                              mesh=mesh)
+        loss = self.impl.token_loss(params, x, batch["targets"],
+                                    batch["mask"], mesh=mesh)
         return loss + 0.01 * aux
 
     # ---------------------------------------------------------------- serving
@@ -123,25 +125,46 @@ class Model:
         groups (``blocks.MoE.route``) read a rank's rows as its block of
         the global batch."""
         out = tree_shardings(self.input_spec_tree(shape), mesh, rules)
-        b, s = shape.global_batch, shape.seq_len
+        b = shape.global_batch
         shards = num_data_shards(mesh)
         if self.cfg.moe is not None and \
-                out["tokens"].local_shape((b, s))[0] * shards != b:
+                out["tokens"].local_shape((b,))[0] * shards != b:
             raise ValueError(
                 f"{self.cfg.name}: an MoE config over a mesh needs a global "
                 f"batch split over its {shards} data shards (got {b} rows)")
         return out
 
     def input_spec_tree(self, shape: ShapeConfig):
-        """Spec tree of a train batch of the decoder-only LM (the configs
-        that train over a mesh; enc-dec and VLM inputs wait for ROADMAP
-        9b'):
-        the batch dim is logical "batch" (``launch.shardings.
-        batch_shardings`` splits it over the data axes)."""
+        """Spec tree of a train batch, the reference's: the batch dim is
+        logical "batch" (``launch.shardings.batch_shardings`` splits it
+        over the data axes); an enc-dec config's frames [B, S, D] split
+        their sequence as "seq_cp", beside decoder tokens, targets and mask
+        of ``WHISPER_DECODER_LEN``; a VLM's patch embeddings [B, P, D] (P =
+        min(patches, S - 1)) come ahead of S - P tokens, with targets and
+        mask over all S positions."""
+        cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
-        tok = Spec((b, s), ("batch", None), torch.int32, "zeros")
-        return {"tokens": tok, "targets": tok,
-                "mask": Spec((b, s), ("batch", None), torch.float32, "ones")}
+        dt = dtype_of(cfg)
+
+        def tok(n):
+            return Spec((b, n), ("batch", None), torch.int32, "zeros")
+
+        def ones(n):
+            return Spec((b, n), ("batch", None), torch.float32, "ones")
+        if cfg.is_encoder_decoder:
+            n = WHISPER_DECODER_LEN
+            return {"frames": Spec((b, s, cfg.d_model),
+                                   ("batch", "seq_cp", None), dt, "normal"),
+                    "tokens": tok(n), "targets": tok(n), "mask": ones(n)}
+        out = {}
+        s_text = s
+        if cfg.num_image_patches:
+            p = min(cfg.num_image_patches, s - 1)
+            s_text = s - p
+            out["patch_embeds"] = Spec((b, p, cfg.d_model),
+                                       ("batch", None, None), dt, "normal")
+        out.update(tokens=tok(s_text), targets=tok(s), mask=ones(s))
+        return out
 
     @staticmethod
     def insert_slot(state, slot: int, new_state):

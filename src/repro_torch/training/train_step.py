@@ -68,13 +68,16 @@ def _unflatten(like, leaves: List[torch.Tensor]):
 
 def make_train_step(model: Model, opt: Optimizer, *,
                     remat_policy: str = "dots_saveable",
-                    microbatches: int = 1, grad_clip: float = 1.0):
+                    microbatches: int = 1, grad_clip: float = 1.0,
+                    batch_shardings=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"}). With microbatches > 1 the batch's leading dim
     is split and the gradients of the microbatches are summed in f32, then
     scaled by 1/n (sequential: memory, not speed). Inside a
     ``mesh_context`` the step runs on that mesh and rules (the
-    microbatches divide the rank's rows)."""
+    microbatches divide the rank's rows); ``batch_shardings`` (the batch's
+    ``launch.shardings.batch_shardings``) goes to ``Model.train_loss``,
+    where an enc-dec config over a mesh needs it."""
     mesh, rules = get_mesh(), get_rules()
     shardings = None
     if mesh is not None:
@@ -97,7 +100,8 @@ def make_train_step(model: Model, opt: Optimizer, *,
         tree = _unflatten(params, leaves)
 
         def value_and_grad(b):
-            loss = model.train_loss(tree, b, remat_policy=remat_policy)
+            loss = model.train_loss(tree, b, remat_policy=remat_policy,
+                                    batch_shardings=batch_shardings)
             # a leaf the loss does not reach gets zeros, as in JAX
             return loss.detach(), list(torch.autograd.grad(
                 loss, leaves, allow_unused=True, materialize_grads=True))

@@ -230,6 +230,22 @@ def test_flash_shapes_are_the_served_models(shape):
     phases' batches and lengths; phase 17's moonshot row: a rank's heads
     of the (2, 2) mesh and a data rank's row."""
     b, sq, sk, hq, hkv, d, causal = chip_smoke.FLASH_SHAPES[shape]
+    data, model = chip_smoke.MESH_LAYOUT
+    if "_mesh_" in shape and shape != "moonshot_mesh_rank":
+        # phase 18's: a rank's heads and a data rank's row
+        run = shape.split("_")[0]
+        cfg, rows, seq, _ = chip_smoke.ENCDEC_VLM_RUNS[run]
+        assert (b, hq, hkv, d) == (rows // data, cfg.num_heads // model,
+                                   cfg.num_kv_heads // model,
+                                   cfg.resolved_head_dim)
+        from repro_torch.models.registry import WHISPER_DECODER_LEN
+        dec = min(WHISPER_DECODER_LEN, seq)
+        want = {"whisper_mesh_encoder": (seq, seq, False),
+                "whisper_mesh_decoder": (dec, dec, True),
+                "whisper_mesh_cross": (dec, seq, False),
+                "llava_mesh_rank": (seq, seq, True)}[shape]
+        assert (sq, sk, causal) == want
+        return
     if shape == "moonshot_mesh_rank":
         cfg, rows, seq, _ = chip_smoke.MOE_SSM_RUNS["moonshot"]
         data, model = chip_smoke.MESH_LAYOUT
@@ -782,3 +798,110 @@ def test_ssd_rank_shapes_are_phase_17s(name):
         hd = cfg.resolved_head_dim
         assert (h, dk, dv, mlstm) == (cfg.num_heads // model, hd, hd + 1,
                                       True)
+
+
+@pytest.fixture
+def encdec_vlm_on_cpu(monkeypatch):
+    """Phase 18 at a small width on the CPU (bf16): scaled whisper (2 + 2
+    layers; 2 rows of 32 frames and 32 decoder tokens) and scaled llava at
+    1 layer (2 x 32 positions, 16 of them patch rows)."""
+    def cut(arch, layers):
+        return dataclasses.replace(scaled_config(ARCHS[arch],
+                                                 num_layers=layers),
+                                   dtype="bfloat16")
+    runs = {"whisper": (cut("whisper-medium", 2), 2, 32, "dots_saveable"),
+            "llava": (cut("llava-next-34b", 1), 2, 32, "dots_saveable")}
+    for name, value in (("DEVICE", "cpu"), ("ENCDEC_VLM_RUNS", runs)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_encdec_vlm_phase_runs(encdec_vlm_on_cpu, capsys):
+    """Phase 18 on 4 gloo ranks on the CPU: whisper's encoder and decoder
+    layer checks and llava's layer check (every leaf's gradient, the
+    encoder's through cross-attention), the steps against one rank and the
+    leaves pass; the frames are gathered over the model axis; the step
+    times, collectives, peak memory and the control run are printed."""
+    counts = chip_smoke.phase_mesh_encdec_vlm()
+    assert counts["flash_attention"] == 0
+    out = capsys.readouterr().out
+    layers = [x for x in out.splitlines()
+              if x.startswith("[encdec-vlm] (a)")]
+    assert [x.split()[2:4] for x in layers] == [
+        ["whisper", "encoder"], ["whisper", "decoder"], ["llava", "layer"]]
+    assert all("its leaves' gradients, row_err" in x for x in layers)
+    decoder = layers[1]
+    assert "encoder/attn/wq" in decoder and "blocks/[0]/cross/wk" in decoder
+    assert "frames_all_gather" in layers[0]
+    steps = [x for x in out.splitlines() if x.startswith("[encdec-vlm] (b)")
+             and ": loss " in x]
+    assert len(steps) == 2 * chip_smoke.MESH_STEPS
+    for name in ("whisper", "llava"):
+        assert f"[encdec-vlm] (c) {name} peak memory per rank" in out
+        assert f"[encdec-vlm] (b) {name} leaves after step" in out
+        assert f"[encdec-vlm] (b) {name} control, one rank with its " \
+            f"weights moved by a bf16 last bit" in out
+    assert "frames_all_gather" in next(
+        x for x in out.splitlines()
+        if x.startswith("[encdec-vlm] (c) whisper") and "collectives" in x)
+
+
+def test_encdec_vlm_phase_sees_a_fault_on_the_cross_attention_path(
+        encdec_vlm_on_cpu, monkeypatch):
+    """A gradient that reaches the encoder through cross-attention scaled
+    by 1.1 fails the phase at (a)'s decoder check, at the encoder's
+    leaves, while the encoder check alone passes: the one-rank reference's
+    decoder scales the gradient of the encoder output it reads (the
+    spawned ranks import the model afresh)."""
+    from repro_torch.models.encdec import EncDec
+
+    class Scale(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * 1.1
+
+    dec_seq = EncDec.dec_seq
+
+    def faulty(self, params, x, enc_out, *args, **kwargs):
+        return dec_seq(self, params, x, Scale.apply(enc_out), *args,
+                       **kwargs)
+    monkeypatch.setattr(EncDec, "dec_seq", faulty)
+    with pytest.raises(SystemExit,
+                       match="whisper decoder: the gradient of leaf enc"):
+        chip_smoke.phase_mesh_encdec_vlm()
+
+
+def test_encdec_vlm_phase_runs_are_cut_in_depth_only():
+    """Phase 18 runs whisper-medium (4 + 4 of 24 + 24 layers, 0.26 B
+    params) and llava-next-34b (1 of 60 layers, 1.48 B) at full width on
+    phase 16's (2, 2) mesh, 2 rows of train_4k's 4096 positions each: 8
+    of whisper's heads a rank, 28 of llava's query heads and 4 of its KV
+    heads; whisper's 51865-row vocabulary stays whole."""
+    import warnings
+    from repro_torch.distributed.sharding import MeshLayout
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    want = {"whisper": ("whisper-medium", 4, 4, 0.26),
+            "llava": ("llava-next-34b", 1, 0, 1.48)}
+    assert set(chip_smoke.ENCDEC_VLM_RUNS) == set(want)
+    layout = MeshLayout(("data", "model"), chip_smoke.MESH_LAYOUT)
+    for name, (cfg, b, s, _) in chip_smoke.ENCDEC_VLM_RUNS.items():
+        arch, layers, enc, params = want[name]
+        full = ARCHS[arch]
+        assert dataclasses.replace(
+            cfg, num_layers=full.num_layers,
+            num_encoder_layers=full.num_encoder_layers) == full
+        assert (cfg.num_layers, cfg.num_encoder_layers) == (layers, enc)
+        assert (b, s) == (2, 4096)
+        model = build_model(cfg)
+        n = sum(int(np.prod(x.shape)) for x in tree_leaves(model.specs()))
+        assert round(n / 1e9, 2) == params, (name, n)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            sh = model.param_shardings(layout)
+        if name == "whisper":
+            assert sh["embed"].spec == (None, "data")
+    assert chip_smoke.MESH_LAYOUT == (2, 2)

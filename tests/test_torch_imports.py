@@ -19,11 +19,13 @@ FIRST = ["repro_torch.kernels", "repro_torch.models", "repro_torch.core",
          "repro_torch.distributed.analytic_cost",
          "repro_torch.distributed.collectives",
          "repro_torch.distributed.fault_tolerance",
+         "repro_torch.distributed.hlo_analysis",
          "repro_torch.launch.shardings",
          "repro_torch.models.attention_ops", "repro_torch.models.blocks",
          "repro_torch.serving.perf_model", "repro_torch.launch",
          "repro_torch.launch.mesh", "repro_torch.launch.serve",
-         "repro_torch.launch.train", "chip_smoke"]
+         "repro_torch.launch.train", "repro_torch.launch.dryrun",
+         "chip_smoke"]
 
 PROBE = """
 import importlib, pkgutil, sys

@@ -301,14 +301,54 @@ def test_elastic_reshard_moves_expert_leaves(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["whisper-medium", "llava-next-34b"])
-def test_encdec_and_vlm_meshes_wait(name):
-    """Enc-dec and VLM configs still wait for ROADMAP 9b': their
-    shardings, which ``elastic_reshard`` moves a tree between, and their
-    loss under a mesh are refused."""
-    model = build_model(tcfgs.scaled_config(tcfgs.ARCHS[name],
-                                            num_layers=2))
-    with pytest.raises(NotImplementedError, match="9b'"):
-        model.param_shardings(host_layout(1))
+def test_encdec_and_vlm_shardings_are_the_references(name):
+    """An enc-dec and a VLM config train over a mesh: on the host mesh of 4
+    ranks, (2, 2), every parameter's spec and every train input's (whisper's
+    frames split over the model axis as "seq_cp", llava's patch rows whole
+    but for their batch) equals the reference's placement under the train
+    rules, and ``elastic_reshard`` moves a params tree between the host
+    meshes of 1 rank (the tree as it is)."""
+    import warnings
+    from repro.configs import ARCHS as JARCHS
+    from repro.configs import scaled_config as jscaled
+    from repro.distributed.sharding import DEFAULT_RULES, spec_for
+    from repro.models import build_model as jbuild
+    layers = dict(num_layers=2)
+    model = build_model(tcfgs.scaled_config(tcfgs.ARCHS[name], **layers))
+    jmodel = jbuild(jscaled(JARCHS[name], **layers))
+    layout = host_layout(4)
+
+    class _Mesh:
+        axis_names = layout.axis_names
+        shape = layout.shape
+    shape = ShapeConfig("t", 64, 4, "train")
+    jshape = JaxShape("t", 64, 4, "train")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = dict(checkpoint._paths(model.param_shardings(layout)))
+        want = dict(jax_ckpt._flatten_with_paths(jmodel.specs()))
+        assert set(got) == set(want)
+        for key, s in want.items():
+            assert got[key].spec == tuple(spec_for(
+                s.logical, s.shape, _Mesh(), DEFAULT_RULES)), key
+        inputs = model.batch_shardings(shape, layout)
+        jinputs = jmodel.input_spec_tree(jshape)
+        assert set(inputs) == set(jinputs)
+        for k, sh in inputs.items():
+            s = jinputs[k]
+            assert model.input_spec_tree(shape)[k].shape == s.shape, k
+            assert sh.spec == tuple(spec_for(s.logical, s.shape, _Mesh(),
+                                             DEFAULT_RULES)), k
+    if name == "whisper-medium":
+        assert inputs["frames"].spec == ("data", "model")
+    else:
+        assert inputs["patch_embeds"].spec == ("data",)
+    one = host_layout(1)
+    sh = model.param_shardings(one)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    moved = elastic_reshard(params, sh, sh)
+    assert all(a is b for a, b in zip(tree_leaves(moved),
+                                      tree_leaves(params)))
 
 
 # ---------------------------------------------------------------- launch

@@ -110,7 +110,8 @@ def train(z: dict, mesh, opt_name: str, model_cfg=None, batch: int = BATCH,
             params = tree_map(lambda x, sh: local_shard(x, sh.spec, mesh),
                               full, ps)
         state = opt.init(params, ps)
-        step = make_train_step(model, opt, remat_policy="dots_saveable")
+        step = make_train_step(model, opt, remat_policy="dots_saveable",
+                               batch_shardings=bs)
         for i in range(STEPS):
             b = _tensors(z, f"{prefix}batch{i}/")
             if bs is not None:
