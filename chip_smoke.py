@@ -166,8 +166,22 @@ no CUDA device or any phase fails. Phases:
    and llava's layer on the mesh against one rank, every leaf's gradient
    row by row; (b) and (c) as in phase 17. Phase 2 holds flash at the
    ranks' shapes.
-19. the kernels line (JSON; launches summed over phases 3-18; each kernel's
-   ``shapes`` lists phase 2's timed shape rows and phases 14 and 16's
+19. mesh serving: llama3-8b at full width cut to 8 layers, bf16, on the
+   same (2, 2) mesh under ``SERVING_RULES`` (TP-only dense weights, each
+   rank's blocks drawn whole and cut by ``Model.init(mesh=)``): (a) a
+   prefill of 2 x 2048 tokens (flash on each rank's 16/4 heads; the cache
+   turned from heads to sequence by one all-to-all over "model") and 16
+   greedy decode steps (the flash-decode over "model"), each step's
+   logits row by row within ``ROW_RTOL`` of one rank's, teacher-forced
+   with the mesh's tokens; (b) the same decode at remap tier 0.25 (the
+   reference's plan: alpha 2 of 8 repeats, m 3 cycling from pinned host
+   memory through ``StreamingFetch``), its logits bitwise (a)'s and its
+   host-to-device bytes m x the rank's layer bytes a step; rank 0's
+   prefill and decode wall times (gloo), the collectives by kind, the
+   peak memory a rank, flash's launches a rank, and flash at the rank's
+   prefill shape (a shape row).
+20. the kernels line (JSON; launches summed over phases 3-19; each kernel's
+   ``shapes`` lists phase 2's timed shape rows and phases 14, 16 and 19's
    flash rows) and, last, the result line (JSON).
 """
 from __future__ import annotations
@@ -2762,11 +2776,13 @@ def check_train_kernels(gen):
             fail(f"ssd_scan gradients at {what}: {errs} > {SSD_RTOL}")
 
 
-def time_train_flash(gen, rows, tag: str, shape, label: str):
+def time_train_flash(gen, rows, tag: str, shape, label: str,
+                     lse: bool = True):
     """Flash at a training shape (B=1, S, Hq, Hkv, D, causal, bf16) with
     and without its lse output (graph replay), beside one causal SDPA
     forward, in turns; the plain forward; the bound. Appends the kernels
-    line's shape row (the lse call) to ``rows``; returns q, k, v."""
+    line's shape row (the lse call; with ``lse`` False, the call without
+    it, as a prefill makes it) to ``rows``; returns q, k, v."""
     s, hq, hkv, d = shape
     q, k, v = _flash_train_inputs(gen, s, hq, hkv, d)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2787,8 +2803,13 @@ def time_train_flash(gen, rows, tag: str, shape, label: str):
         f"{ms['no_lse']:.4f} ms; SDPA forward {ms['sdpa']:.4f} ms, "
         f"kernel/SDPA {ms['lse'] / ms['sdpa']:.3f}; plain {plain_ms:.4f} ms; "
         f"bound {bms:.4f} ms ({by}), {bms / ms['lse']:.3f} of it")
-    rows.append(_shape_row("flash_attention", label, ms["lse"], plain_ms,
-                           bms, by, ms["sdpa"]))
+    if lse:
+        rows.append(_shape_row("flash_attention", label, ms["lse"], plain_ms,
+                               bms, by, ms["sdpa"]))
+    else:
+        bms, by = bound(nbytes, flops)
+        rows.append(_shape_row("flash_attention", label, ms["no_lse"],
+                               plain_ms, bms, by, ms["sdpa"]))
     return q, k, v
 
 
@@ -3649,10 +3670,10 @@ def _moe_step0_drops(cfg, model, params, batch, shards: int):
     from repro_torch.models import lm
     first = []
 
-    def record(p, x, cfg_, mesh=None):
+    def record(p, x, cfg_, mesh=None, data=None):
         if not first:
             first.append((p, x.reshape(-1, x.shape[-1])))
-        return MoE.forward(lm._MOE, p, x, cfg_, mesh)
+        return MoE.forward(lm._MOE, p, x, cfg_, mesh, data)
     lm._MOE.forward = record
     try:
         with torch.no_grad():
@@ -4083,6 +4104,271 @@ def phase_mesh_encdec_vlm():
     return _phase_mesh_runs(_encdec_vlm_spec())
 
 
+# --------------------------------------------------------------- phase 19
+# serving over phase 16's (2, 2) mesh of MESH_WORLD ranks sharing the card
+# (gloo) under SERVING_RULES (TP-only dense weights): llama3-8b at full
+# width cut to 8 of its 32 layers (as phase 14), bf16, seeded weights drawn
+# whole and cut into each rank's blocks by ``Model.init(mesh=)``; a prefill
+# of SERVE_MESH_BATCH x SERVE_MESH_PROMPT tokens (each data rank's row,
+# flash on its 16/4 heads), then SERVE_MESH_STEPS greedy decode steps (the
+# flash-decode over "model", which splits the cache's sequence); (b) the
+# same decode at remap tier SERVE_MESH_TIER (alpha = 2 of the 8 repeats,
+# m = 4 cycling from pinned host memory through ``StreamingFetch``, beta
+# = 2) from the same prefill state. One rank on the same weights,
+# teacher-forced with the mesh's tokens, is the reference: each step's
+# logits within ROW_RTOL of its rows (the mesh sums the TP products'
+# partials in f32 across ranks and rounds them once: other roundings than
+# one rank's bf16 products over whole heads)
+SERVE_MESH_CFG = dataclasses.replace(ARCHS["llama3-8b"], num_layers=8)
+SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS = 2, 2048, 16
+SERVE_MESH_CONTEXT = 4096
+SERVE_MESH_TIER = 0.25
+SERVE_MESH_SEED = 20
+
+
+def _serve_mesh_spec() -> dict:
+    return {"device": DEVICE, "cfg": SERVE_MESH_CFG,
+            "batch": SERVE_MESH_BATCH, "prompt": SERVE_MESH_PROMPT,
+            "steps": SERVE_MESH_STEPS, "context": SERVE_MESH_CONTEXT,
+            "tier": SERVE_MESH_TIER, "layout": MESH_LAYOUT,
+            "seed": SERVE_MESH_SEED}
+
+
+def _serve_mesh_prompts(sp: dict) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(sp["seed"])
+    return torch.randint(0, sp["cfg"].vocab_size, (sp["batch"], sp["prompt"]),
+                         generator=gen, dtype=torch.int32)
+
+
+def mesh_serve_rank(rank: int, sp: dict, out: str) -> None:
+    """One rank of phase 19 (under ``spawn_ranks``): (a) the prefill and
+    the greedy decode steps on the rank's blocks under SERVING_RULES, each
+    timed on the host around a synchronised call (gloo's collectives wait
+    on the host), the collectives of the prefill and of the last step by
+    kind; (b) the decode again at the remap tier from a copy of the
+    prefill's state, teacher-forced with (a)'s tokens: its logits must be
+    bitwise (a)'s and its host-to-device bytes m x the rank's layer bytes
+    a step. Every step's logits (whole rows, gathered) and tokens go to
+    ``out`` (rank 0); each rank's numbers to ``out``.rank (JSON)."""
+    import torch.distributed as dist
+    from repro_torch.core.transfer_engine import make_fetch, tier_split
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import (
+        SERVING_RULES, gather_full, local_shard,
+    )
+    from repro_torch.models.blocks import rows_axes
+    dev = sp["device"]
+    if dev == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank} finds no CUDA device")
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    global DEVICE
+    DEVICE = dev
+    mesh = make_mesh(MeshLayout(("data", "model"), sp["layout"]), dev)
+    cfg, b, ctx = sp["cfg"], sp["batch"], sp["context"]
+    model = build_model(cfg)
+    res = {"rank": rank}
+    with mesh_context(mesh, SERVING_RULES), torch.no_grad():
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            sp["seed"]), dev, mesh)
+        rows = (rows_axes(mesh, b),)
+        toks = local_shard(_serve_mesh_prompts(sp), rows, mesh).to(dev)
+        shape = ShapeConfig("mesh-serve", sp["prompt"], b, "prefill")
+        _sync()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks}, ctx,
+                                      shape=shape)
+        _sync()
+        res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        res["prefill_launches"] = kernels.launch_counts()
+        res["prefill_collectives"] = collectives.counts()
+        state0 = tree_map(lambda t: t.clone(), state)
+        seen = [logits]
+        tok = logits.argmax(-1).to(torch.int32)
+        fed, step_ms = [], []
+        kernels.reset_launch_counts()
+        for _ in range(sp["steps"]):
+            fed.append(tok)
+            collectives.reset_counts()
+            _sync()
+            t0 = time.perf_counter()
+            logits, state = model.decode_step(params, state, tok, ctx,
+                                              global_batch=b)
+            _sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            seen.append(logits)
+            tok = logits.argmax(-1).to(torch.int32)
+        res["decode_launches"] = kernels.launch_counts()
+        res["step_ms"] = step_ms
+        res["step_collectives"] = collectives.counts()
+        # (b) the remap tier: the rank's blocks split, the device copy of
+        # the cycle repeats dropped
+        plan, resident, cycle, maps = tier_split(params["blocks"], sp["tier"])
+        params = dict(params, blocks=None)
+        _free()
+        layer_bytes = sum(a[0].numel() * a.element_size()
+                          for a in tree_leaves(cycle))
+        res.update(alpha=plan.alpha, m=plan.m, beta=plan.beta,
+                   cycle_layers=list(plan.cycle_layers),
+                   pinned=all(a.is_pinned() for a in tree_leaves(cycle))
+                   if dev == "cuda" else None,
+                   layer_bytes=layer_bytes)
+        state, h2d, equal, remap_ms = state0, 0, True, []
+        for i in range(sp["steps"]):
+            fetch = make_fetch(resident, cycle, maps, slots=plan.beta)
+            _sync()
+            t0 = time.perf_counter()
+            logits, state = model.decode_step(params, state, fed[i], ctx,
+                                              fetch=fetch, global_batch=b)
+            _sync()
+            remap_ms.append((time.perf_counter() - t0) * 1e3)
+            equal = equal and torch.equal(logits, seen[i + 1])
+            h2d += getattr(fetch, "h2d_bytes", 0)
+        res.update(remap_equal=equal, h2d_bytes=h2d, remap_step_ms=remap_ms)
+        whole = [gather_full(x, rows, mesh).cpu() for x in seen]
+        tokens = [gather_full(x, rows, mesh).cpu() for x in fed]
+    res["peak_gib"] = _peak() / 2**30
+    if rank == 0:
+        torch.save({"logits": whole, "tokens": tokens}, out)
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+
+
+def mesh_serve_reference(sp: dict, tokens) -> tuple:
+    """(a)'s reference on one rank: the same weights whole, the prompts'
+    prefill, then the decode teacher-forced with the mesh's tokens.
+    Returns (the logits of prefill and of each step, on the host, the
+    launch counts, wall ms of the prefill)."""
+    _reset_peak()
+    model, params = _init(sp["cfg"], sp["seed"], "mesh-serve-ref",
+                          f"d_ff {sp['cfg'].d_ff}, ")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        _sync()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(
+            params, {"tokens": _serve_mesh_prompts(sp).to(DEVICE)},
+            sp["context"])
+        _sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        seen = [logits.cpu()]
+        for tok in tokens:
+            logits, state = model.decode_step(params, state, tok.to(DEVICE),
+                                              sp["context"])
+            seen.append(logits.cpu())
+    counts = kernels.launch_counts()
+    log(f"[mesh-serve-ref] one rank: prefill {prefill_ms:.1f} ms wall; "
+        f"peak memory {_peak() / 2**30:.2f} GiB; launches {counts}")
+    del params, state, model
+    _free()
+    return seen, counts, prefill_ms
+
+
+def phase_mesh_serve(shape_rows):
+    """Phase 19: (a) and (b) on ``MESH_WORLD`` ranks sharing the card
+    (``mesh_serve_rank``), then one rank teacher-forced with the mesh's
+    tokens; the checks, and flash at a rank's prefill shape (a shape row).
+    Returns the launch counts of every rank's (a) and (b) and of the
+    reference."""
+    import tempfile
+    card = _card()
+    sp = _serve_mesh_spec()
+    cfg = sp["cfg"]
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "serve_mesh.pt")
+        spawn_ranks(mesh_serve_rank, MESH_WORLD, sp, out)
+        recs = []
+        for r in range(MESH_WORLD):
+            with open(f"{out}.{r}") as f:
+                recs.append(json.load(f))
+        mesh_run = torch.load(out)
+        log(f"[mesh-serve] (a)-(b) on {MESH_WORLD} ranks took "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    ref, c, ref_ms = mesh_serve_reference(sp, mesh_run["tokens"])
+    counts.update(c)
+    log(f"[mesh-serve] one-rank reference took {time.perf_counter() - t0:.1f}"
+        f" s on {card}")
+    tol = ROW_RTOL[dtype_of(cfg)]
+    errs = [row_err(got, want) for got, want in zip(mesh_run["logits"], ref)]
+    same = sum(int((got.argmax(-1) == want.argmax(-1)).sum())
+               for got, want in zip(mesh_run["logits"], ref))
+    total = len(ref) * sp["batch"]
+    r0 = recs[0]
+    log(f"[mesh-serve] (a) {cfg.name} {cfg.num_layers} layers on a "
+        f"{MESH_LAYOUT} (data, model) mesh, SERVING_RULES: prefill "
+        f"{sp['batch']} x {sp['prompt']} tokens, {sp['steps']} greedy "
+        f"decode steps; logits row_err against one rank: prefill "
+        f"{errs[0]:.3g}, decode steps worst {max(errs[1:]):.3g} (limit "
+        f"{tol}); greedy tokens equal to one rank's {same} of {total}")
+    if not all(np.isfinite(e) and e <= tol for e in errs):
+        fail(f"mesh serve: logits off one rank's: row_err {errs} > {tol}")
+    step = np.median([rec["step_ms"][-1] for rec in recs])
+    log(f"[mesh-serve] (a) rank 0: prefill {r0['prefill_ms']:.1f} ms wall "
+        f"(one rank {ref_ms:.1f} ms), decode step median "
+        f"{np.median(r0['step_ms']):.1f} ms wall (gloo; the last step's "
+        f"median over ranks {step:.1f} ms)")
+    for what, key in (("prefill", "prefill_collectives"),
+                      ("last decode step", "step_collectives")):
+        coll = r0[key]
+        log(f"[mesh-serve] (a) collectives of rank 0's {what} (calls, MB): "
+            + ", ".join(f"{k} {v['calls']} {v['bytes'] / 1e6:.2f}"
+                        for k, v in sorted(coll.items()))
+            + f"; {sum(v['bytes'] for v in coll.values()) / 1e6:.2f} MB in "
+              f"all")
+    log(f"[mesh-serve] peak memory per rank (GiB): " + ", ".join(
+        f"{rec['peak_gib']:.2f}" for rec in recs))
+    want_h2d = r0["m"] * r0["layer_bytes"] * sp["steps"]
+    log(f"[mesh-serve] (b) remap tier {sp['tier']}: alpha {r0['alpha']}, m "
+        f"{r0['m']}, beta {r0['beta']}, cycle repeats {r0['cycle_layers']} "
+        f"(pinned host: {r0['pinned']}); logits bitwise equal to (a) on "
+        f"every rank: {all(rec['remap_equal'] for rec in recs)}; rank 0 "
+        f"host-to-device {r0['h2d_bytes'] / 1e6:.1f} MB over "
+        f"{sp['steps']} steps (m x layer bytes x steps "
+        f"{want_h2d / 1e6:.1f} MB); step median "
+        f"{np.median(r0['remap_step_ms']):.1f} ms wall")
+    for rec in recs:
+        if not rec["remap_equal"]:
+            fail(f"mesh serve remap: rank {rec['rank']}'s logits differ "
+                 f"from no remap")
+        if DEVICE == "cuda" and not (
+                rec["pinned"] and rec["h2d_bytes"] == rec["m"]
+                * rec["layer_bytes"] * sp["steps"]):
+            fail(f"mesh serve remap on rank {rec['rank']}: pinned "
+                 f"{rec['pinned']}, {rec['h2d_bytes']} bytes streamed, not "
+                 f"{rec['m']} x {rec['layer_bytes']} x {sp['steps']}")
+    for rec in recs:
+        counts.update(rec["prefill_launches"])
+        counts.update(rec["decode_launches"])
+        if DEVICE == "cuda" and rec["prefill_launches"].get(
+                "flash_attention", 0) < cfg.num_layers:
+            fail(f"mesh serve: flash launched "
+                 f"{rec['prefill_launches']} times in rank "
+                 f"{rec['rank']}'s prefill of {cfg.num_layers} layers")
+    log(f"[mesh-serve] flash launches per rank in the prefill: " + ", ".join(
+        str(rec["prefill_launches"].get("flash_attention", 0))
+        for rec in recs))
+    if DEVICE == "cuda":
+        hq = cfg.num_heads // MESH_LAYOUT[1]
+        hkv = cfg.num_kv_heads // MESH_LAYOUT[1]
+        time_train_flash(torch.Generator(device=DEVICE).manual_seed(21),
+                         shape_rows, "mesh-serve",
+                         (sp["prompt"], hq, hkv, cfg.resolved_head_dim),
+                         f"mesh-serve rank llama3-8b prefill B=1 "
+                         f"S={sp['prompt']} Hq {hq} Hkv {hkv} causal",
+                         lse=False)
+        _free()
+    return counts
+
+
 def _card() -> str:
     if DEVICE != "cuda":
         return "the CPU"
@@ -4099,7 +4385,7 @@ def main() -> None:
     phase_build()
     checked, shape_rows = phase_kernels()
     # launches summed over every serving phase's runs, phase 14's two
-    # training runs, phase 15's serve CLI and phases 16-18's runs on one
+    # training runs, phase 15's serve CLI and phases 16-19's runs on one
     # rank and on each rank of the mesh (each resets the counts just
     # before it runs and reads them just after)
     launches = Counter()
@@ -4113,6 +4399,7 @@ def main() -> None:
     launches.update(phase_mesh_train(shape_rows))
     launches.update(phase_mesh_moe_ssm())
     launches.update(phase_mesh_encdec_vlm())
+    launches.update(phase_mesh_serve(shape_rows))
     log(f"[launches] every serving, training and CLI phase: "
         f"{dict(launches)}")
     rows = []

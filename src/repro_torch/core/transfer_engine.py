@@ -34,7 +34,7 @@ from repro_torch.core.expert_remap import (
     EXPERT_PARAM_KEYS, ExpertPlan, identity_expert_plan, residency_states,
     step_fetch_plan, unit_expert,
 )
-from repro_torch.core.layer_selection import RemapPlan
+from repro_torch.core.layer_selection import RemapPlan, make_plan
 from repro_torch.core.transfer_pipeline import (
     PlanDrain, StepTiming, identity_plan, simulate_decode_step,
 )
@@ -175,6 +175,41 @@ def make_fetch(resident, cycle, maps: Dict[str, np.ndarray],
         return tree_map(lambda a: a[i], stack)
 
     return fetch
+
+
+def tier_plan(repeats: int, tier: float) -> RemapPlan:
+    """The plan of a MIRAGE remap tier over ``repeats`` repeats, as the
+    reference's dry run makes it: alpha = max(round(tier * repeats), 1)
+    repeats donated, planned with t_c = 1, t_t = 1e-9 and double
+    buffering (so m = alpha + beta layers cycle)."""
+    alpha = max(int(round(tier * repeats)), 1)
+    return make_plan(repeats, alpha, t_c=1.0, t_t=1e-9, double_buffer=True)
+
+
+def tier_split(blocks, tier: float):
+    """A remap tier on stacked blocks (this rank's, under a mesh): (plan,
+    resident, cycle, maps), the cycle stack in pinned host memory where
+    the blocks lie on a CUDA device (``split_blocks``). A decode step
+    streams it through ``make_fetch(resident, cycle, maps,
+    slots=plan.beta)``, made anew each step."""
+    plan = tier_plan(_repeats(blocks), tier)
+    resident, cycle, maps = split_blocks(
+        blocks, plan, pin_cycle=tree_leaves(blocks)[0].is_cuda)
+    return plan, resident, cycle, maps
+
+
+def cross_kv_to_host(cross):
+    """Enc-dec's cross K/V (stacked [R, ...], immutable after prefill)
+    remapped like parameters: (the stack in pinned host memory where it
+    lies on a CUDA device, else a copy, ``cross_transform``): the hook
+    ``EncDec.decode_step`` applies to each repeat's slice, which copies
+    the slice to the stack's device (on the current stream)."""
+    dev = tree_leaves(cross)[0].device
+    host = tree_map(_pinned if dev.type == "cuda" else torch.clone, cross)
+
+    def cross_transform(sl):
+        return tree_map(lambda a: a.to(dev, non_blocking=True), sl)
+    return host, cross_transform
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,8 @@ all-reduce its tensor, a reduce-scatter its full input. It also counts, by
 the op's name in the reference's HLO (``op_counts``: "all-reduce",
 "all-gather", "reduce-scatter"), the bytes of its result on this rank, the
 rule of ``repro.distributed.hlo_analysis``: a reduce-scatter counts its
-rank's block, 1/n of its input (``distributed.hlo_analysis`` reads these).
+rank's block, 1/n of its input, an all-to-all what the rank receives
+(``distributed.hlo_analysis`` reads these).
 The collectives run
 on gloo or NCCL alike: gloo takes CUDA tensors for
 ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and ``all_reduce``
@@ -123,6 +124,22 @@ def all_gather_dim(x: torch.Tensor, group, dim: int,
     dist.all_gather_into_tensor(out, x, group=group)
     _count(kind, out, "all-gather", out)
     return out.movedim(0, dim)
+
+
+def all_to_all_dim(x: torch.Tensor, group, split_dim: int, cat_dim: int,
+                   kind: str) -> torch.Tensor:
+    """``x`` cut into the group's n equal blocks along ``split_dim``, block
+    j sent to the group's rank j (``all_to_all_single``); the n blocks this
+    rank receives, concatenated along ``cat_dim`` in the group's rank
+    order (a new contiguous tensor)."""
+    n = dist.get_world_size(group)
+    xs = x.movedim(split_dim, 0)
+    xs = xs.reshape((n, xs.shape[0] // n) + xs.shape[1:]).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    _count(kind, out, "all-to-all", out)
+    return torch.cat([b.movedim(0, split_dim) for b in out.unbind(0)],
+                     dim=cat_dim)
 
 
 def reduce_scatter_dim(x: torch.Tensor, group, dim: int,

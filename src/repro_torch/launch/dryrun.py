@@ -1,11 +1,13 @@
 """Multi-pod dry run (PyTorch counterpart of ``repro.launch.dryrun``): one
-train step of every (architecture x train shape) cell as rank 0 of the
-production meshes, on fake tensors, with its memory, FLOPs and collectives
-recorded in the reference's artifact schema.
+step of every (architecture x shape) cell as rank 0 of the production
+meshes, on fake tensors, with its memory, FLOPs and collectives recorded in
+the reference's artifact schema.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
       --shape train_4k --mesh multi_pod --force
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --shape decode_32k \\
+      --remap-tier 0.25
 
 Artifacts land in artifacts/dryrun_torch/<mesh>/<arch>__<shape>[...].json
 (the reference's tags), which ``benchmarks/roofline.py`` reads with
@@ -15,30 +17,44 @@ A cell joins a fake process group (``torch.testing``'s ``FakeStore``,
 backend "fake": every collective returns at once) as rank 0 of the
 mesh's 256 (``single_pod``) or 512 (``multi_pod``) ranks, builds the
 ``DeviceMesh`` of ``launch.mesh.production_layout`` on the CPU, makes the
-rank's blocks of the params, the optimizer state (``opt_shardings``) and
-the batch (``batch_shardings``) as fake tensors (shapes and dtypes, no
-data: the reference's ``abstract_params``, ``opt_shardings`` and
-``abstract_inputs``), and runs one ``make_train_step`` step on them inside
-``mesh_context``. A kernel cannot run on a fake tensor, so the dispatchers
-take the plain versions, as on any CPU tensor (``"lowering":
-"torch-fake-cpu"``); the reference's dry run is a CPU tool as well.
+rank's blocks of its arguments as fake tensors (shapes and dtypes, no
+data) and runs one step on them inside ``mesh_context``. A train cell:
+the params, the optimizer state (``opt_shardings``) and the batch
+(``batch_shardings``; the reference's ``abstract_params``,
+``opt_shardings`` and ``abstract_inputs``) through one
+``make_train_step`` step. A prefill cell: the params and the prompt batch
+through ``Model.prefill``; a decode cell: the params, the decode state
+(``Model.decode_state_shardings``, the reference's
+``abstract_decode_state``) and one token a row through
+``Model.decode_step``. ``--remap-tier`` decodes at a MIRAGE tier: the
+rank's blocks split into a resident and a cycle stack
+(``core.transfer_engine.tier_split``, the reference's
+``_lower_remap_decode`` plan), the cycle repeats fetched each step; an
+enc-dec config remaps its cross K/V instead (``cross_kv_to_host``, the
+reference's ``_lower_cross_kv_remap``). A kernel cannot run on a fake
+tensor, so the dispatchers take the plain versions, as on any CPU tensor
+(``"lowering": "torch-fake-cpu"``); the reference's dry run is a CPU tool
+as well.
 
 What a record holds: ``memory.argument_bytes``, the exact bytes of the
-rank's params, optimizer state and batch; ``temp_bytes``, the peak of the
-fake storage the step allocates and holds at once; ``alias_bytes``, the
-params and optimizer state, which the step updates in place;
-``output_bytes``, those and the two f32 metrics; the host and code fields
-0. ``cost_analysis_raw``: the FLOPs of ``torch.utils.flop_counter``'s
-formulas and the bytes every op reads and writes (each tensor argument
-and result once a call). ``collectives``: ``distributed.hlo_analysis``'s statistics of
-the step. ``analytic``: ``distributed.analytic_cost.cost_for``.
+rank's arguments (a remap cell's cycle stack included: on a card it lies
+in pinned host memory, which the reference's CPU analysis cannot see
+either; ``mirage`` holds its bytes); ``temp_bytes``, the peak of the fake
+storage the step allocates and holds at once; ``alias_bytes``, what the
+step updates in place (the train state; the decode state, the
+reference's donated argument); ``output_bytes``, what it returns; the
+host and code fields 0. ``cost_analysis_raw``: the FLOPs of
+``torch.utils.flop_counter``'s formulas and the bytes every op reads and
+writes (each tensor argument and result once a call). ``collectives``:
+``distributed.hlo_analysis``'s statistics of the step. ``analytic``:
+``distributed.analytic_cost.cost_for``. ``mirage`` (remap cells): the
+reference's extras, ``alpha``, ``m``, ``cycle_bytes_per_device`` and
+``resident_bytes_per_device`` (and ``cross_kv_host_bytes_per_device``).
 
-Prefill and decode cells, and ``--remap-tier``, lower the reference's
-serving functions over sharded weights, which the port does not run yet:
-they raise ``NotImplementedError`` (ROADMAP queue 1 item 9d) and ``main``
-prints them as ``WAIT``, counted apart from ``OK`` and ``FAIL``; so does
-the ``head-tp`` profile, whose head_dim split the port's blocks do not
-take. ``main`` exits 0 when no cell fails.
+The ``head-tp`` profile splits head_dim, which the port's blocks do not
+take: it raises ``NotImplementedError`` (ROADMAP queue 1 item 9e) and
+``main`` prints its cells as ``WAIT``, counted apart from ``OK`` and
+``FAIL``. ``main`` exits 0 when no cell fails.
 """
 from __future__ import annotations
 
@@ -70,6 +86,9 @@ from repro_torch.distributed.sharding import (
 from repro_torch.launch.mesh import make_mesh, production_layout
 from repro_torch.launch.shardings import batch_shardings
 from repro_torch.models import build_model
+from repro_torch.core.transfer_engine import (
+    cross_kv_to_host, make_fetch, tier_split,
+)
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.training import (
     OptimizerConfig, make_optimizer, make_train_step,
@@ -77,8 +96,7 @@ from repro_torch.training import (
 
 ARTIFACT_DIR = os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "artifacts", "dryrun_torch")
-WAITS = "ROADMAP queue 1 item 9d (serving over sharded weights)"
-METRIC_BYTES = 8          # the step's loss and grad norm, f32 scalars
+WAITS = "ROADMAP queue 1 item 9e (the head-tp profile)"
 
 
 def pick_optimizer(cfg) -> str:
@@ -125,7 +143,7 @@ def _rules(profile: str) -> ShardingRules:
     if profile == "head-tp":
         raise NotImplementedError(
             "the head-tp profile splits head_dim over the model axis; the "
-            "port's blocks split heads, not head_dim")
+            f"port's blocks split heads, not head_dim: {WAITS}")
     return DEFAULT_RULES
 
 
@@ -142,6 +160,12 @@ def _warm_groups(mesh) -> None:
 def _fake(shape, dtype) -> torch.Tensor:
     """A tensor of ``shape`` (under ``FakeTensorMode``: no data)."""
     return torch.zeros(shape, dtype=dtype)
+
+
+def _fake_tree(specs, shardings):
+    """The rank's block of every leaf of a Spec tree under its sharding."""
+    return tree_map(lambda s, sh: _fake(sh.local_shape(s.shape), s.dtype),
+                    specs, shardings)
 
 
 def _nbytes(tree) -> int:
@@ -201,62 +225,125 @@ def abstract_state(model, shape, mesh, rules=DEFAULT_RULES):
     ``FakeTensorMode`` they hold no data: the reference's
     ``abstract_params``, ``opt_shardings`` and ``abstract_inputs``."""
     ps = model.param_shardings(mesh, rules)
-    params = tree_map(lambda s, sh: _fake(sh.local_shape(s.shape), s.dtype),
-                      model.specs(), ps)
+    params = _fake_tree(model.specs(), ps)
     opt = make_optimizer(OptimizerConfig(name=pick_optimizer(model.cfg)))
     state = opt.init(params, ps)
     bs = batch_shardings(model, shape, mesh, rules)
-    batch = {k: _fake(bs[k].local_shape(s.shape), s.dtype)
-             for k, s in model.input_spec_tree(shape).items()}
-    return params, opt, state, bs, batch
+    return params, opt, state, bs, _fake_tree(model.input_spec_tree(shape),
+                                              bs)
+
+
+def serving_state(model, shape, mesh, rules=DEFAULT_RULES):
+    """The rank's blocks of a serving cell's arguments on ``mesh`` under
+    ``rules``: (params, inputs), the inputs a prefill cell's batch
+    (``batch_shardings``) or a decode cell's {"tokens" [B], "state"} (the
+    decode state of ``shape.global_batch`` rows over a cache of
+    ``shape.seq_len``, ``decode_state_shardings``). Made under
+    ``FakeTensorMode`` they hold no data: the reference's
+    ``abstract_params``, ``abstract_inputs`` and
+    ``abstract_decode_state``."""
+    params = _fake_tree(model.specs(), model.param_shardings(mesh, rules))
+    inputs = _fake_tree(model.input_spec_tree(shape),
+                        batch_shardings(model, shape, mesh, rules))
+    if shape.kind == "decode":
+        b, ctx = shape.global_batch, shape.seq_len
+        inputs["state"] = _fake_tree(
+            model.decode_state_specs(b, ctx),
+            model.decode_state_shardings(b, ctx, mesh, rules))
+    return params, inputs
+
+
+def _serve(model, shape, params, inputs, remap_tier: float):
+    """Run a serving cell's step on the rank's blocks: (its outputs, the
+    aliased bytes, the ``mirage`` extras or None). A decode cell at a
+    remap tier streams the repeats of ``tier_split``'s cycle stack through
+    ``make_fetch`` (an enc-dec config remaps its cross K/V instead,
+    ``cross_kv_to_host``), as the reference's ``_lower_remap_decode`` and
+    ``_lower_cross_kv_remap``; the decode state is updated in place, the
+    reference's donated argument (not in the cross-K/V cell, whose
+    reference donates nothing)."""
+    if shape.kind == "prefill":
+        return model.prefill(params, inputs, shape.seq_len,
+                             shape=shape), 0, None
+    state, kw, extras, fetch = inputs["state"], {}, None, None
+    alias = _nbytes(state)
+    if remap_tier and model.cfg.is_encoder_decoder:
+        blocks = state["blocks"][0]["mixer"]
+        blocks["cross"], kw["cross_transform"] = cross_kv_to_host(
+            blocks["cross"])
+        cross = _nbytes(blocks["cross"])
+        extras = {"cross_kv_host_bytes_per_device": cross, "alpha": 0,
+                  "m": 0, "cycle_bytes_per_device": cross,
+                  "resident_bytes_per_device": 0}
+        alias = 0
+    elif remap_tier:
+        plan, res, cyc, maps = tier_split(params["blocks"], remap_tier)
+        params = dict(params, blocks=None)
+        fetch = make_fetch(res, cyc, maps, slots=plan.beta)
+        extras = {"alpha": plan.alpha, "m": plan.m,
+                  "cycle_bytes_per_device": _nbytes(cyc),
+                  "resident_bytes_per_device": _nbytes(res)}
+    out = model.decode_step(params, state, inputs["tokens"], shape.seq_len,
+                            fetch=fetch, global_batch=shape.global_batch,
+                            **kw)
+    return out, alias, extras
 
 
 def lower_cell(arch, shape, mesh, *, remap_tier: float = 0.0,
                microbatches: int = 0, remat_policy: str = "full",
                profile: str = "train"):
-    """One train step of the cell on ``mesh`` (a ``DeviceMesh`` of the
-    world this process joined), on fake tensors. ``arch``: a config or its
-    name; ``shape``: a ``ShapeConfig`` or its name. Returns (its record
-    without the cell's names, model, shape). A prefill or decode cell, or
-    a remap tier, raises ``NotImplementedError`` (``WAITS``)."""
+    """One step of the cell on ``mesh`` (a ``DeviceMesh`` of the world
+    this process joined), on fake tensors: a train step, a prefill, or a
+    decode step (at ``remap_tier``, the MIRAGE tier). ``arch``: a config
+    or its name; ``shape``: a ``ShapeConfig`` or its name. Returns (its
+    record without the cell's names, model, shape). The ``head-tp``
+    profile raises ``NotImplementedError`` (``WAITS``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     shape = SHAPES_BY_NAME[shape] if isinstance(shape, str) else shape
-    if shape.kind != "train" or remap_tier:
-        raise NotImplementedError(
-            f"{cfg.name} x {shape.name}"
-            + (f" at remap tier {remap_tier:g}" if remap_tier else "")
-            + f": the serving cells wait for {WAITS}")
     rules = _rules(profile)
     model = build_model(cfg)
-    if microbatches == 0:
+    train = shape.kind == "train"
+    if train and remap_tier:
+        raise ValueError("a remap tier applies to decode cells")
+    if train and microbatches == 0:
         microbatches = auto_microbatches(cfg, shape, mesh)
     t0 = time.perf_counter()
     _warm_groups(mesh)
     with mesh_context(mesh, rules), FakeTensorMode():
-        params, opt, state, bs, batch = abstract_state(model, shape, mesh,
-                                                       rules)
-        step = make_train_step(model, opt, remat_policy=remat_policy,
-                               microbatches=microbatches,
-                               batch_shardings=bs)
-        alias = _nbytes(params) + _nbytes(state)
-        args = alias + _nbytes(batch)
+        if train:
+            params, opt, state, bs, batch = abstract_state(model, shape,
+                                                           mesh, rules)
+            step = make_train_step(model, opt, remat_policy=remat_policy,
+                                   microbatches=microbatches,
+                                   batch_shardings=bs)
+            args = (params, state, batch)
+
+            def run():
+                # the train state is updated in place: the reference's
+                # donated arguments
+                return (step(params, state, batch),
+                        _nbytes(params) + _nbytes(state), None)
+        else:
+            args = serving_state(model, shape, mesh, rules)
+
+            def run():
+                return _serve(model, shape, *args, remap_tier)
+        arg_bytes = _nbytes(args)
         lower_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         collectives.reset_counts()
         meter = _Meter()
         with meter:
-            step(params, state, batch)
+            out, alias, extras = run()
         stats = collective_stats()
     rec: Dict[str, Any] = {
         "lowering": "torch-fake-cpu",
         "compile_s": round(time.perf_counter() - t0, 2),
         "lower_s": round(lower_s, 2),
-        "microbatches": microbatches,
-        "optimizer": pick_optimizer(cfg),
         "memory": {
-            "argument_bytes": args,
-            "output_bytes": alias + METRIC_BYTES,
+            "argument_bytes": arg_bytes,
+            "output_bytes": _nbytes(out),
             "temp_bytes": meter.peak,
             "alias_bytes": alias,
             "code_bytes": 0,
@@ -269,6 +356,11 @@ def lower_cell(arch, shape, mesh, *, remap_tier: float = 0.0,
                         "count_by_op": stats.count_by_op,
                         "total_bytes": stats.total_bytes},
     }
+    if train:
+        rec.update(microbatches=microbatches,
+                   optimizer=pick_optimizer(cfg))
+    if extras is not None:
+        rec["mirage"] = extras
     return rec, model, shape
 
 

@@ -33,8 +33,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.distributed.collectives import all_max, all_sum
 from repro_torch.distributed.sharding import mesh_group
 
 NEG_INF = -1e30
@@ -238,11 +238,10 @@ def lse_combine(o, m, l, group):
     ``group``: the cross-rank step of distributed flash-decode. One
     all-reduce (MAX) of m, then one (SUM) of l and o, each rescaled by
     exp(m - max m) (the two sums travel as one tensor)."""
-    m_g = m.clone()
-    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    m_g = all_max(m, group, "decode_combine")
     scale = torch.exp(m - m_g)
     ol = torch.cat([o * scale[..., None], (l * scale)[..., None]], dim=-1)
-    dist.all_reduce(ol, op=dist.ReduceOp.SUM, group=group)
+    ol = all_sum(ol, group, "decode_combine")
     return ol[..., :-1], m_g, ol[..., -1]
 
 

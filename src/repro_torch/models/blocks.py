@@ -24,12 +24,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.distributed.collectives import (
-    copy_to_region, fsdp_gather, gather_over, reduce_from_region, sum_over,
-    tp_gather,
+    all_gather_dim, all_to_all_dim, copy_to_region, fsdp_gather, gather_over,
+    reduce_from_region, sum_over, tp_gather,
 )
 from repro_torch.distributed.sharding import (
     axis_sizes, batch_axis_names, get_mesh, get_rules, mesh_group,
-    mesh_index, num_data_shards, spec_axes, spec_for,
+    mesh_index, spec_axes, spec_for,
 )
 from repro_torch.models.attention_ops import (
     decode_attention, distributed_decode_attention,
@@ -124,12 +124,8 @@ class Attention:
         whole gradient. With no mesh every collective is the identity."""
         mesh = ctx.get("mesh")
         w, sp = _gathered(self, p, cfg, mesh)
-        axes = spec_axes(sp["wq"], 1)
-        kv_axes = spec_axes(sp["wk"], 1)
-        if (kv_axes and kv_axes != axes) or spec_axes(sp["wo"], 0) != axes:
-            raise ValueError(f"the heads of wq, wk/wv and wo split over "
-                             f"{axes}, {kv_axes}, {spec_axes(sp['wo'], 0)}")
-        if axes and not kv_axes:
+        axes = _attn_heads_axes(sp)
+        if axes and not spec_axes(sp["wk"], 1):
             heads = _kv_heads_read(cfg, w["wq"].shape[1],
                                    mesh_index(mesh, axes))
             w = dict(w, **{n: copy_to_region(w[n], mesh, axes)[:, heads]
@@ -163,38 +159,52 @@ class Attention:
         return max_context
 
     def init_state(self, cfg: ModelConfig, batch: int, max_context: int):
+        """The dense decode cache {k, v} [batch, cache_len, Hkv, hd]: the
+        sequence over "kv_seq", or, for a batch of one, "kv_seq_full" (the
+        reference's pure context parallelism over every axis); every KV
+        head on every rank."""
         hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         s = self.cache_len(cfg, max_context)
         dt = dtype_of(cfg)
-        return {
-            "k": Spec((batch, s, hkv, hd), ("batch", "kv_seq", None, None),
-                      dt, "zeros"),
-            "v": Spec((batch, s, hkv, hd), ("batch", "kv_seq", None, None),
-                      dt, "zeros"),
-        }
+        logical = ("batch", _seq_logical(batch), None, None)
+        return {"k": Spec((batch, s, hkv, hd), logical, dt, "zeros"),
+                "v": Spec((batch, s, hkv, hd), logical, dt, "zeros")}
 
-    def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int):
+    def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int,
+                           mesh=None, batch: int = 0):
         """Prefill K/V [..., S, Hkv, hd] (any leading dims: the LM passes
         them stacked [R, B, ...]) into a decode cache [..., cache_len, Hkv,
         hd]. A ring (sliding-window) cache whose prompt fills it keeps the
-        last ``window`` tokens, token t at slot t % window."""
+        last ``window`` tokens, token t at slot t % window. Cross-attention
+        keeps the encoder's K/V as they are.
+
+        ``mesh`` (with the global ``batch``): ``cache`` holds the rank's
+        rows and the KV heads its ``fwd_seq`` computed, over the whole
+        prompt; the result is the rank's block of the decode state
+        (``init_state``'s layout): every KV head over the rank's slice of
+        the sequence (``_cache_layout``); cross-attention's, every KV head
+        over the whole source."""
         k, v = cache["k"], cache["v"]
         if self.cross:                  # the encoder's K/V, as they are
-            return {"k": k, "v": v}
+            return {n: _all_kv_heads(self, cfg, a, mesh)
+                    for n, a in (("k", k), ("v", v))}
         s = k.shape[-3]
         s_c = self.cache_len(cfg, max_context)
         if cfg.sliding_window and s >= s_c:
             last = s - s_c
             ar = torch.arange(s_c, device=k.device)
             take = (last + ar)[torch.argsort((last + ar) % s_c)]
-            return {"k": k.index_select(-3, take),
-                    "v": v.index_select(-3, take)}
-
-        def pad(a):
-            out = a.new_zeros(a.shape[:-3] + (s_c,) + a.shape[-2:])
-            out[..., :s, :, :] = a
-            return out
-        return {"k": pad(k), "v": pad(v)}
+            k, v = k.index_select(-3, take), v.index_select(-3, take)
+        else:
+            def pad(a):
+                out = a.new_zeros(a.shape[:-3] + (s_c,) + a.shape[-2:])
+                out[..., :s, :, :] = a
+                return out
+            k, v = pad(k), pad(v)
+        if mesh is None:
+            return {"k": k, "v": v}
+        return {n: _cache_layout(self, cfg, a, mesh, batch)
+                for n, a in (("k", k), ("v", v))}
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
         """Decode one token. x [B, D]; state {k, v} [B, Sc, Hkv, hd];
@@ -203,90 +213,209 @@ class Attention:
         returns an updated copy), so the state it returns is empty: nothing
         is left for the caller to write back.
 
-        Under a mesh whose model axis is > 1 (``mesh_context``), shared
-        also holds ``cache_len``, the whole cache's length, and the state
-        and kv_pos/kv_valid hold this rank's slice of that cache
-        (``decode_cache_slices``): the flash-decode over the ranks where
-        the mesh splits the sequence, local decode where it does not.
+        Under a mesh (``mesh_context``) x, pos and slot are the rank's rows
+        of the batch and the state, kv_pos and kv_valid the rank's block of
+        the cache (``decode_cache_slices``: ``init_state``'s layout, every
+        KV head); shared also holds ``cache_len``, the whole cache's
+        length, and ``batch``, the global batch (default: x's rows, a batch
+        no axis splits). The weights are the rank's blocks (``_gathered``:
+        FSDP-gathered, the heads split over their axes) or whole (their
+        full shapes: nothing split). q, k and v are projected for the
+        rank's heads and gathered over the heads' axes to every head; the
+        rank whose slice holds ``slot`` writes the new row; the attention
+        is the flash-decode over the axes that split the sequence
+        (``distributed_decode_attention``), local where none does; ``wo``
+        is row-parallel on the rank's heads, its partial sums reduced over
+        their axes.
 
         Cross-attention: Q only, against the cross cache ``state`` {k, v}
-        [B, Ssrc, Hkv, hd] under ``shared["cross_pos"]``/``["cross_valid"]``
-        [B, Ssrc], unmasked otherwise; it writes nothing."""
+        [B, Ssrc, Hkv, hd] (every KV head) under ``shared["cross_pos"]``/
+        ``["cross_valid"]`` [B, Ssrc], unmasked otherwise; it writes
+        nothing. Over a mesh, heads-parallel: the rank's query heads
+        against the KV heads they read."""
+        mesh = get_mesh()
+        w, sp = _gathered(self, p, cfg, mesh)
+        axes = _attn_heads_axes(sp)
         pos = shared["pos"]
         if self.cross:
-            q = _einsum("bd,dhk->bhk", x, p["wq"]).to(x.dtype)
-            out = decode_attention(q, state["k"], state["v"], pos,
+            q = _einsum("bd,dhk->bhk", x, w["wq"]).to(x.dtype)
+            kv = _kv_index(cfg, w, sp, mesh)
+            out = decode_attention(q, state["k"][:, :, kv],
+                                   state["v"][:, :, kv], pos,
                                    shared["cross_pos"], shared["cross_valid"],
                                    causal=False)
-            return _einsum("bhk,hkd->bd", out, p["wo"]).to(x.dtype), {}
-        q, k_new, v_new = self._qkv(p, x, cfg)
-        q = rope(q, pos, cfg.rope_theta)
-        k_new = rope(k_new, pos, cfg.rope_theta)
-        mesh = get_mesh()
-        kv_axes = batch_axes = ()
-        if mesh is not None and axis_sizes(mesh).get("model", 1) > 1:
-            kv_axes, batch_axes = _mesh_decode_layout(mesh, state, shared)
+            y = reduce_from_region(_einsum("bhk,hkd->bd", out, w["wo"]),
+                                   mesh, axes, "decode_tp_all_reduce")
+            return y.to(x.dtype), {}
+        q, k_new, v_new = self._qkv(w, x, cfg)
+        q = _all_heads(rope(q, pos, cfg.rope_theta), mesh, axes)
+        kv_w = spec_axes(sp["wk"], 1)
+        k_new = _all_heads(rope(k_new, pos, cfg.rope_theta), mesh, kv_w)
+        v_new = _all_heads(v_new, mesh, kv_w)
+        kv_axes, s0 = _mesh_decode_layout(mesh, x, state, shared)
+        s_l = state["k"].shape[1]
+        slot = shared["slot"].long() - s0
+        mine = ((slot >= 0) & (slot < s_l))[:, None, None]
+        idx = (torch.arange(slot.shape[0], device=x.device),
+               slot.clamp(0, s_l - 1))
+        # rows whose slot lies on another rank write back what they hold:
+        # no host sync on a boolean index
+        for name, new in (("k", k_new), ("v", v_new)):
+            cache = state[name]
+            cache[idx] = torch.where(mine, new, cache[idx])
         if kv_axes:
-            out = self._dec_sharded(mesh, kv_axes, batch_axes, q, k_new,
-                                    v_new, state, shared, cfg)
+            out = distributed_decode_attention(
+                mesh, kv_axes, q, state["k"], state["v"], pos,
+                shared["kv_pos"], shared["kv_valid"],
+                window=cfg.sliding_window)
         else:
-            rows = torch.arange(x.shape[0], device=x.device)
-            slot = shared["slot"].long()
-            state["k"][rows, slot] = k_new
-            state["v"][rows, slot] = v_new
             out = decode_attention(q, state["k"], state["v"], pos,
                                    shared["kv_pos"], shared["kv_valid"],
                                    window=cfg.sliding_window)
-        y = _einsum("bhk,hkd->bd", out, p["wo"]).to(x.dtype)
-        return y, {}
+        hq = w["wq"].shape[1]
+        h0 = mesh_index(mesh, axes) * hq
+        y = reduce_from_region(
+            _einsum("bhk,hkd->bd", out[:, h0:h0 + hq], w["wo"]), mesh, axes,
+            "decode_tp_all_reduce")
+        return y.to(x.dtype), {}
 
-    @staticmethod
-    def _dec_sharded(mesh, kv_axes, batch_axes, q, k_new, v_new, state,
-                     shared, cfg):
-        """``fwd_dec``'s attention under a ``DeviceMesh`` that splits the
-        cache sequence over ``kv_axes`` (``decode_layout``): the
-        flash-decode. q, the new K/V rows, ``pos`` and ``slot`` hold the
-        whole batch on every rank; the state's k/v and
-        ``kv_pos``/``kv_valid`` hold this rank's rows (its block along
-        ``batch_axes``) and its contiguous slice of the sequence. Only the
-        rank whose slice holds ``slot`` changes that row. Returns the whole
-        batch's [B, Hq, hd]."""
-        b = q.shape[0]
-        rows = _block(mesh, batch_axes, b)
-        s_l = state["k"].shape[1]
-        slot = shared["slot"][rows].long() - mesh_index(mesh, kv_axes) * s_l
-        mine = ((slot >= 0) & (slot < s_l))[:, None, None]
-        idx = (torch.arange(slot.shape[0], device=q.device),
-               slot.clamp(0, s_l - 1))
-        # rows whose slot lies elsewhere write back what they hold: no
-        # host sync on a boolean index
-        for name, new in (("k", k_new), ("v", v_new)):
-            cache = state[name]
-            cache[idx] = torch.where(mine, new[rows], cache[idx])
-        out = distributed_decode_attention(
-            mesh, kv_axes, q[rows], state["k"], state["v"],
-            shared["pos"][rows], shared["kv_pos"], shared["kv_valid"],
-            window=cfg.sliding_window)
-        if batch_axes:
-            parts = [torch.empty_like(out) for _ in range(math.prod(
-                axis_sizes(mesh)[ax] for ax in batch_axes))]
-            torch.distributed.all_gather(parts, out.contiguous(),
-                                         group=mesh_group(mesh, batch_axes))
-            out = torch.cat(parts)
-        return out
+
+def _specs(block, cfg: ModelConfig, mesh):
+    """Each leaf's spec of a block on ``mesh`` as the rules and the
+    divisibility fallback resolve it."""
+    rules = get_rules()
+    return {n: spec_for(s.logical, s.shape, mesh, rules)
+            for n, s in block.specs(cfg).items()}
 
 
 def _gathered(block, p, cfg: ModelConfig, mesh):
     """(weights, specs) of a block's leaves ``p`` on ``mesh``: each spec as
     the rules and the divisibility fallback resolve it, each weight
     FSDP-gathered over its data axes where it is used (its tensor-parallel
-    splits stay). With no mesh: ``p``, nothing split."""
-    if mesh is None:
+    splits stay). With no mesh, or leaves of their full shapes (weights
+    kept whole on every rank): ``p``, nothing split."""
+    full = block.specs(cfg)
+    if mesh is None or all(tuple(p[n].shape) == tuple(s.shape)
+                           for n, s in full.items()):
         return p, dict.fromkeys(p, ())
-    rules = get_rules()
-    sp = {n: spec_for(s.logical, s.shape, mesh, rules)
-          for n, s in block.specs(cfg).items()}
+    sp = _specs(block, cfg, mesh)
     return {n: fsdp_gather(p[n], sp[n], mesh) for n in sp}, sp
+
+
+def _attn_heads_axes(sp) -> Tuple[str, ...]:
+    """The axes that split an attention block's query heads; its KV heads
+    split over the same axes or stay whole, and ``wo``'s heads follow the
+    query heads'."""
+    axes = spec_axes(sp["wq"], 1)
+    kv_axes = spec_axes(sp["wk"], 1)
+    if (kv_axes and kv_axes != axes) or spec_axes(sp["wo"], 0) != axes:
+        raise ValueError(f"the heads of wq, wk/wv and wo split over "
+                         f"{axes}, {kv_axes}, {spec_axes(sp['wo'], 0)}")
+    return axes
+
+
+def _all_heads(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """t [B, H_local, ...], the rank's block of the heads over ``axes``,
+    gathered to every head (``t`` itself where ``axes`` is empty)."""
+    if not axes:
+        return t
+    return all_gather_dim(t, mesh_group(mesh, axes), 1,
+                          "decode_heads_all_gather")
+
+
+def _kv_held(cfg: ModelConfig, sp, hq_local: int, hkv_local: int,
+             block: int):
+    """The KV heads of the rank at ``block`` along the query heads' axes:
+    its block of them where they split, else the heads its query heads
+    read (``_kv_heads_read``: a slice, or a list in their order, repeats
+    included); its ``fwd_seq`` computes their K/V."""
+    if spec_axes(sp["wk"], 1):
+        return slice(block * hkv_local, (block + 1) * hkv_local)
+    return _kv_heads_read(cfg, hq_local, block)
+
+
+def _kv_index(cfg: ModelConfig, w, sp, mesh):
+    """The heads of a cache that holds every KV head which the rank's
+    query heads read (``_kv_held``); every head where the heads stay
+    whole."""
+    axes = _attn_heads_axes(sp)
+    if not axes:
+        return slice(None)
+    return _kv_held(cfg, sp, w["wq"].shape[1], w["wk"].shape[1],
+                    mesh_index(mesh, axes))
+
+
+def _dedup_heads(a: torch.Tensor, ids, dim: int) -> torch.Tensor:
+    """The KV heads 0..Hkv-1 of ``a``, whose dimension ``dim`` holds the
+    heads ``ids`` (every head at least once), each from its first
+    place."""
+    first = {}
+    for j, h in enumerate(ids):
+        first.setdefault(h, j)
+    order = [first[h] for h in range(len(first))]
+    if order == list(range(a.shape[dim])):
+        return a
+    return a.index_select(dim, torch.tensor(order, device=a.device))
+
+
+def _rank_kv_ids(block, cfg: ModelConfig, mesh):
+    """(the heads' axes, each rank's KV head ids along them, in rank
+    order) of the prefill caches ``block``'s ``fwd_seq`` makes on the
+    ranks of ``mesh``; ((), None) where every rank holds every head."""
+    if mesh is None:
+        return (), None
+    sp = _specs(block, cfg, mesh)
+    axes = _attn_heads_axes(sp)
+    if not axes:
+        return (), None
+    n = math.prod(axis_sizes(mesh)[ax] for ax in axes)
+    every = list(range(cfg.num_kv_heads))
+    ids = []
+    for i in range(n):
+        held = _kv_held(cfg, sp, cfg.num_heads // n, cfg.num_kv_heads // n, i)
+        ids += every[held] if isinstance(held, slice) else held
+    return axes, ids
+
+
+def _all_kv_heads(block, cfg: ModelConfig, a: torch.Tensor, mesh):
+    """A prefill cache ``a`` [..., S, Hk_local, hd] of the rank's KV heads
+    gathered over the heads' axes to every KV head."""
+    axes, ids = _rank_kv_ids(block, cfg, mesh)
+    if not axes:
+        return a
+    a = all_gather_dim(a, mesh_group(mesh, axes), a.dim() - 2,
+                       "cache_heads_all_gather")
+    return _dedup_heads(a, ids, a.dim() - 2).contiguous()
+
+
+def _cache_layout(block, cfg: ModelConfig, a: torch.Tensor, mesh,
+                  batch: int):
+    """The rank's block of a decode cache in ``init_state``'s layout, from
+    ``a`` [..., B_local, Sc, Hk_local, hd]: the rank's rows, the decode
+    cache's whole sequence, the KV heads the rank's ``fwd_seq`` computed.
+    Where the heads' axes also split the sequence (they are the last of
+    its axes, as "model" is), one all-to-all over them turns heads into
+    sequence (each rank sends each other rank that rank's slice of its
+    heads) inside the block of the sequence that the other axes give the
+    rank; where they do not, an all-gather of the heads, then the rank's
+    slice of the sequence."""
+    s_c = a.shape[-3]
+    kv_axes, _ = decode_layout(mesh, batch, s_c)
+    axes, ids = _rank_kv_ids(block, cfg, mesh)
+    seq_dim = a.dim() - 3
+    if axes and kv_axes[len(kv_axes) - len(axes):] == axes:
+        outer = kv_axes[:len(kv_axes) - len(axes)]
+        blk = _block(mesh, outer, s_c)
+        a = all_to_all_dim(a.narrow(seq_dim, blk.start, blk.stop - blk.start),
+                           mesh_group(mesh, axes), seq_dim, a.dim() - 2,
+                           "cache_all_to_all")
+        return _dedup_heads(a, ids, a.dim() - 2).contiguous()
+    if set(axes) & set(kv_axes):
+        raise ValueError(f"the heads split over {axes} and the cache's "
+                         f"sequence over {kv_axes}")
+    a = _all_kv_heads(block, cfg, a, mesh)
+    seq = _block(mesh, kv_axes, s_c)
+    return a.narrow(seq_dim, seq.start, seq.stop - seq.start).contiguous()
 
 
 def _heads_axes(sp, dims: Dict[str, int]) -> Tuple[str, ...]:
@@ -317,67 +446,62 @@ def _kv_heads_read(cfg: ModelConfig, hq_local: int, block: int):
     return ids
 
 
-def _kv_shard_axes(mesh, kv_shape) -> Tuple[str, ...]:
-    """Which mesh axes shard the KV-cache sequence dim (flash-decode)."""
-    sizes = axis_sizes(mesh) if mesh is not None else {}
-    if sizes.get("model", 1) == 1:
-        return ()
-    logical = ("batch", "kv_seq_full" if kv_shape[0] == 1 else "kv_seq",
-               None, None)
-    spec = spec_for(logical, kv_shape, mesh, get_rules())
-    seq_part = spec[1] if len(spec) > 1 else None
-    if seq_part is None:
-        return ()
-    return seq_part if isinstance(seq_part, tuple) else (seq_part,)
-
-
-def _batch_shard_axes(mesh, batch: int, kv_axes) -> Tuple[str, ...]:
-    sizes = axis_sizes(mesh)
-    axes = []
-    n = 1
-    for ax in ("pod", "data"):
-        if ax in sizes and ax not in kv_axes:
-            size = sizes[ax]
-            if size > 1 and batch % (n * size) == 0:
-                axes.append(ax)
-                n *= size
-    return tuple(axes)
+def _seq_logical(batch: int) -> str:
+    """The logical axis of a decode cache's sequence: a batch of one splits
+    it over every axis (the reference's long-context cells)."""
+    return "kv_seq_full" if batch == 1 else "kv_seq"
 
 
 def decode_layout(mesh, batch: int, cache_len: int
                   ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
-    """(kv_axes, batch_axes) of a decode cache [batch, cache_len, ...]
-    under the mesh: the reference's ``_kv_shard_axes`` and, where those
-    split the sequence, its ``_batch_shard_axes``. ((), ()) where no axis
-    splits the sequence: the cache stays whole on every rank and decode
-    runs locally, as in the reference."""
-    kv_axes = _kv_shard_axes(mesh, (batch, cache_len, 1, 1))
-    if not kv_axes:
+    """(kv_axes, rows_axes) of a decode cache [batch, cache_len, ...]
+    under the mesh and the ambient rules: the axes that split its sequence
+    and its rows in ``init_state``'s layout, the reference's state
+    layout; ((), ()) with no mesh. ``fwd_dec`` flash-decodes over
+    ``kv_axes`` (locally where they are empty)."""
+    if mesh is None:
         return (), ()
-    return kv_axes, _batch_shard_axes(mesh, batch, kv_axes)
+    logical = ("batch", _seq_logical(batch), None, None)
+    spec = spec_for(logical, (batch, cache_len, 1, 1), mesh, get_rules())
+    return spec_axes(spec, 1), spec_axes(spec, 0)
 
 
-def _mesh_decode_layout(mesh, state, shared):
-    """``fwd_dec``'s ``decode_layout`` under a mesh whose model axis is
-    > 1, at the whole cache's length ``shared["cache_len"]``; the state
-    must hold this rank's slice of that cache (``decode_cache_slices``)."""
+def rows_axes(mesh, batch: int) -> Tuple[str, ...]:
+    """The axes that split a serving batch of ``batch`` rows (the logical
+    "batch": the data axes that divide it); () with no mesh."""
+    if mesh is None:
+        return ()
+    return spec_axes(spec_for(("batch",), (batch,), mesh, get_rules()), 0)
+
+
+def _mesh_decode_layout(mesh, x, state, shared):
+    """(kv_axes, the first position of the rank's slice) of ``fwd_dec``'s
+    cache under the mesh, at the whole cache's length
+    ``shared["cache_len"]`` and the global batch ``shared["batch"]``
+    (default: x's rows); the state must hold the rank's block of that
+    cache (``decode_cache_slices``). ((), 0) with no mesh."""
+    if mesh is None:
+        return (), 0
     if "cache_len" not in shared:
-        raise ValueError("under a mesh whose model axis is > 1, fwd_dec "
-                         "needs shared['cache_len'], the whole cache's "
-                         "length")
-    b, s_c = shared["pos"].shape[0], int(shared["cache_len"])
+        raise ValueError("under a mesh, fwd_dec needs shared['cache_len'], "
+                         "the whole cache's length")
+    b, s_c = int(shared.get("batch", x.shape[0])), int(shared["cache_len"])
     rows, seq = decode_cache_slices(mesh, b, s_c)
     want = (rows.stop - rows.start, seq.stop - seq.start)
-    if tuple(state["k"].shape[:2]) != want:
+    if (x.shape[0],) + tuple(state["k"].shape[1:2]) != want:
         raise ValueError(
             f"this rank's slice of a [{b}, {s_c}] cache is {want} (rows, "
-            f"sequence); the state holds {tuple(state['k'].shape[:2])}")
-    return decode_layout(mesh, b, s_c)
+            f"sequence); x and the state hold "
+            f"{(x.shape[0],) + tuple(state['k'].shape[1:2])}")
+    kv_axes, _ = decode_layout(mesh, b, s_c)
+    return kv_axes, seq.start
 
 
 def _block(mesh, axes, n: int) -> slice:
     """This rank's contiguous block of a dimension of ``n`` split over
     ``axes``."""
+    if not axes:
+        return slice(0, n)
     parts = math.prod(axis_sizes(mesh)[ax] for ax in axes)
     if n % parts:
         raise ValueError(f"a dimension of {n} does not split over {axes} "
@@ -386,13 +510,28 @@ def _block(mesh, axes, n: int) -> slice:
     return slice(i * n // parts, (i + 1) * n // parts)
 
 
+def mesh_shared(shared, mesh, batch: int, cache_len: int):
+    """A decode step's ``shared`` on ``mesh``: ``kv_pos``/``kv_valid``
+    [B_local, cache_len] cut to the rank's span of the cache's sequence
+    (``decode_layout``), and the global ``batch`` and ``cache_len`` that
+    ``Attention.fwd_dec`` reads; ``shared`` as it is with no mesh."""
+    if mesh is None:
+        return shared
+    kv_axes, _ = decode_layout(mesh, batch, cache_len)
+    seq = _block(mesh, kv_axes, cache_len)
+    return dict(shared, kv_pos=shared["kv_pos"][:, seq],
+                kv_valid=shared["kv_valid"][:, seq], cache_len=cache_len,
+                batch=batch)
+
+
 def decode_cache_slices(mesh, batch: int, cache_len: int
                         ) -> Tuple[slice, slice]:
     """This rank's rows and sequence span of a decode cache [batch,
-    cache_len, ...] under the mesh: the slice ``Attention.fwd_dec`` reads
-    from the state and ``kv_pos``/``kv_valid``."""
-    kv_axes, batch_axes = decode_layout(mesh, batch, cache_len)
-    return _block(mesh, batch_axes, batch), _block(mesh, kv_axes, cache_len)
+    cache_len, ...] under the mesh (``decode_layout``): the block
+    ``Attention.fwd_dec`` reads from the state and ``kv_pos``/
+    ``kv_valid``."""
+    kv_axes, row_axes = decode_layout(mesh, batch, cache_len)
+    return _block(mesh, row_axes, batch), _block(mesh, kv_axes, cache_len)
 
 
 # ---------------------------------------------------------------------------
@@ -466,14 +605,19 @@ class MoE:
         return min(tokens_per_group, max(c, c3, m.min_capacity))
 
     @staticmethod
-    def _data(mesh) -> Tuple[Tuple[str, ...], int]:
+    def _data(mesh, data=None) -> Tuple[Tuple[str, ...], int]:
         """(data axes, data shards): under a mesh the MoE's rows are this
-        data rank's block of the global batch's tokens, in their order."""
+        data rank's block of the global batch's tokens, in their order,
+        split over ``data`` (default: every data axis of the mesh)."""
         if mesh is None:
             return (), 1
-        return batch_axis_names(mesh), num_data_shards(mesh)
+        if data is None:
+            data = batch_axis_names(mesh)
+        sizes = axis_sizes(mesh)
+        return tuple(data), math.prod(sizes[ax] for ax in data)
 
-    def route(self, p, xf: torch.Tensor, cfg: ModelConfig, mesh=None):
+    def route(self, p, xf: torch.Tensor, cfg: ModelConfig, mesh=None,
+              data=None):
         """Routing of the tokens xf [T, D]: the router's softmax ``probs``
         [T, E] (f32), the top-k experts ``top_e`` [T, k], and the capacity
         slots of the group the tokens route in: ``disp`` [E * cap] (the
@@ -496,11 +640,12 @@ class MoE:
         ranks before it: the JAX block's stable sort by expert over the
         global token order. ``slot`` is then in the group's numbering and
         ``disp`` holds this rank's tokens only (T at a slot that another
-        rank's token fills)."""
+        rank's token fills). ``data``: the axes that split the rows where
+        not every data axis does (a serving batch of one row: none)."""
         m = cfg.moe
         t = xf.shape[0]
         e, k = m.num_experts, m.top_k
-        data, shards = self._data(mesh)
+        data, shards = self._data(mesh, data)
         exchange = shards > 1 and t * shards * k <= 8 * e
         cap = self._capacity(t * shards if exchange else t, m)
         dev = xf.device
@@ -532,7 +677,7 @@ class MoE:
         slot = slot.view(t, k).sort(dim=-1).values
         return probs, top_e, disp[:-1], wcomb[:-1], slot, cap
 
-    def forward(self, p, x, cfg: ModelConfig, mesh=None):
+    def forward(self, p, x, cfg: ModelConfig, mesh=None, data=None):
         """x [..., D] -> (y [..., D], probs [T, E], top_e [T, k]): the
         layer's output and its routing, without the aux loss (the decode
         paths discard it, as the JAX model's jit does).
@@ -551,13 +696,13 @@ class MoE:
         whole on every model rank, so each picks the slots of its own
         experts locally, runs them, and adds its experts' part of each
         token's combine (in ascending order); the parts are summed over the
-        model axis (no all-to-all)."""
+        model axis (no all-to-all). ``data``: as ``route``."""
         shape = x.shape
         d = shape[-1]
         xf = x.reshape(-1, d)
-        e = cfg.moe.num_experts
         w, sp = _gathered(self, p, cfg, mesh)
-        probs, top_e, disp, wcomb, slot, cap = self.route(w, xf, cfg, mesh)
+        probs, top_e, disp, wcomb, slot, cap = self.route(w, xf, cfg, mesh,
+                                                          data)
         axes = spec_axes(sp["w_in"], 0)
         e_l = w["w_in"].shape[0]
         lo = mesh_index(mesh, axes) * e_l * cap if axes else 0
@@ -586,18 +731,18 @@ class MoE:
         return out.reshape(shape), probs, top_e
 
     def __call__(self, p, x, cfg: ModelConfig, return_stats: bool = False,
-                 mesh=None):
+                 mesh=None, data=None):
         """x [..., D] -> (y [..., D], aux) (+ the per-expert assignment
         counts [E], pre-capacity, with ``return_stats``), as the JAX
         block. Under a ``mesh`` the aux loss and the counts are the global
         batch's: the [E] sums of the router's probabilities and of the
         top-1 choices are summed over the data axes before the means' product
         (the first with an identity backward, so each rank's gradient is its
-        own tokens' part of the global one)."""
-        out, probs, top_e = self.forward(p, x, cfg, mesh)
+        own tokens' part of the global one). ``data``: as ``route``."""
+        out, probs, top_e = self.forward(p, x, cfg, mesh, data)
         e = cfg.moe.num_experts
         experts = torch.arange(e, device=x.device)
-        data, shards = self._data(mesh)
+        data, shards = self._data(mesh, data)
         t = probs.shape[0] * shards
         # load-balance aux loss (Switch): E * sum(frac_tokens * frac_probs)
         me = reduce_from_region(probs.sum(dim=0), mesh, data,
@@ -813,18 +958,42 @@ class Mamba:
                 {"ssm": final, "conv": conv_tail})
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
+        """One token. Under a mesh (``mesh_context``), on the rank's rows
+        and blocks, heads-parallel as ``fwd_seq`` (``_mesh_weights``): the
+        state's ``conv`` holds the rank's d_in channels and ``ssm`` every
+        head (``init_state``'s layout); the rank updates its heads', which
+        are gathered back over the heads' axes."""
         bsz = x.shape[0]
-        _, h, n = self.dims(cfg)
-        xi, z = self._proj_gates(p, x)                 # [B, d_in]
+        n = cfg.ssm.d_state
+        mesh = get_mesh()
+        w, axes = self._mesh_weights(p, cfg, mesh)
+        h = w["dt_proj"].shape[1]
+        h0 = mesh_index(mesh, axes) * h
+        xi, z = self._proj_gates(w, x)                 # [B, d_in(rank)]
         window = torch.cat([state["conv"], xi[:, None, :]], dim=1)
-        xc = F.silu(_einsum("bcd,cd->bd", window, p["conv_w"]).to(x.dtype))
-        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(p, x, self._bc(p, x),
+        xc = F.silu(_einsum("bcd,cd->bd", window, w["conv_w"]).to(x.dtype))
+        b_mat, c_mat, log_a, xh, v = self._ssm_inputs(w, x, self._bc(w, x),
                                                       xc, cfg)
         q = c_mat[:, None, :].expand(bsz, h, n)
         k = b_mat[:, None, :].expand(bsz, h, n)
-        y, new_ssm = ssd_decode_step(q, k, v, log_a, state["ssm"])
-        return self._out(p, x, y, xh, z), {"ssm": new_ssm,
-                                           "conv": window[:, 1:]}
+        y, new_ssm = ssd_decode_step(q, k, v, log_a,
+                                     state["ssm"][:, h0:h0 + h])
+        return (self._out(w, x, y, xh, z, mesh, axes),
+                {"ssm": _all_heads(new_ssm, mesh, axes),
+                 "conv": window[:, 1:]})
+
+    def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int,
+                           mesh=None, batch: int = 0):
+        """``fwd_seq``'s final state is the decode state; under a mesh
+        (the rank's heads) ``ssm`` is gathered over the heads' axes to
+        every head, ``conv`` keeps the rank's channels."""
+        axes = _heads_axes(_specs(self, cfg, mesh), self.HEAD_DIMS) \
+            if mesh is not None else ()
+        ssm = cache["ssm"]
+        if axes:
+            ssm = all_gather_dim(ssm, mesh_group(mesh, axes), ssm.dim() - 3,
+                                 "cache_heads_all_gather").contiguous()
+        return {"ssm": ssm, "conv": cache["conv"]}
 
 
 # ---------------------------------------------------------------------------
@@ -909,13 +1078,34 @@ class MLSTM:
         return out.to(x.dtype), {"c": final}
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
-        q, k, v = self._qkv(p, x, cfg)
-        i_gate, log_f = self._gates(p, x)              # [b,h]
+        """One token. Under a mesh, on the rank's rows and blocks,
+        heads-parallel as ``fwd_seq``: the state's ``c`` holds every head
+        (``init_state``'s layout); the rank updates its heads', which are
+        gathered back over the heads' axes."""
+        mesh = get_mesh()
+        w, sp = _gathered(self, p, cfg, mesh)
+        axes = _heads_axes(sp, self.HEAD_DIMS)
+        q, k, v = self._qkv(w, x, cfg)
+        h0 = mesh_index(mesh, axes) * q.shape[1]
+        i_gate, log_f = self._gates(w, x)              # [b,h]
         y, new_c = ssd_decode_step(q, k, self._v_aug(v, i_gate), log_f,
-                                   state["c"])
+                                   state["c"][:, h0:h0 + q.shape[1]])
         hh = self._read(y).to(x.dtype)
-        out = _einsum("bhk,hkd->bd", hh, p["wo"]).to(x.dtype)
-        return out, {"c": new_c}
+        out = reduce_from_region(_einsum("bhk,hkd->bd", hh, w["wo"]), mesh,
+                                 axes, "decode_tp_all_reduce")
+        return out.to(x.dtype), {"c": _all_heads(new_c, mesh, axes)}
+
+    def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int,
+                           mesh=None, batch: int = 0):
+        """``fwd_seq``'s final state is the decode state; under a mesh
+        (the rank's heads) ``c`` is gathered over the heads' axes."""
+        axes = _heads_axes(_specs(self, cfg, mesh), self.HEAD_DIMS) \
+            if mesh is not None else ()
+        c = cache["c"]
+        if axes:
+            c = all_gather_dim(c, mesh_group(mesh, axes), c.dim() - 3,
+                               "cache_heads_all_gather").contiguous()
+        return {"c": c}
 
 
 # ---------------------------------------------------------------------------
@@ -1006,7 +1196,22 @@ class SLSTM:
         return out.to(x.dtype), dict(zip(("c", "n", "h"), state))
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
+        """One token. Under a mesh, on the rank's rows and blocks,
+        heads-parallel as ``fwd_seq``: the state holds the rank's heads
+        (``init_state``'s layout splits them as the weights'); ``wo``
+        row-parallel."""
+        mesh = get_mesh()
+        p, sp = _gathered(self, p, cfg, mesh)
+        axes = _heads_axes(sp, self.HEAD_DIMS)
         wx = _einsum("bd,dghk->bghk", x, p["w"])
         s2 = self._cell(p, wx, state)
-        out = _einsum("bhk,hkd->bd", s2["h"].to(x.dtype), p["wo"]).to(x.dtype)
-        return out, s2
+        out = reduce_from_region(_einsum("bhk,hkd->bd", s2["h"].to(x.dtype),
+                                         p["wo"]), mesh, axes,
+                                 "decode_tp_all_reduce")
+        return out.to(x.dtype), s2
+
+    def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int,
+                           mesh=None, batch: int = 0):
+        """``fwd_seq``'s final state is the decode state, the rank's heads
+        under a mesh as the state's layout holds them."""
+        return cache

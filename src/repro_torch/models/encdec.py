@@ -26,18 +26,23 @@ their sequence (the input spec's "seq_cp"); the encoder gathers them whole.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import all_gather_dim
-from repro_torch.distributed.sharding import mesh_group
-from repro_torch.models.blocks import Attention, SwiGLU, rms_norm
+from repro_torch.distributed.sharding import axis_sizes, get_mesh, mesh_group
+from repro_torch.models.blocks import (
+    Attention, SwiGLU, mesh_shared, rms_norm,
+)
 from repro_torch.models.common import (
     Spec, dtype_of, remat, stack_specs, tree_init, tree_map,
 )
-from repro_torch.models.lm import VocabEnds, _index, _index_fetch
+from repro_torch.models.lm import (
+    VocabEnds, _index, _index_fetch, _require_batch,
+)
 
 _SELF = Attention()
 _CROSS = Attention(cross=True)
@@ -213,16 +218,29 @@ class EncDec(VocabEnds):
         return tree_map(lambda s: s.materialize(None, device),
                         self.decode_state_specs(batch, max_context))
 
-    def prefill(self, params, frames, tokens, max_context: int):
+    @torch.no_grad()
+    def prefill(self, params, frames, tokens, max_context: int,
+                global_batch: int = 0, frames_axes=()):
         """Encode the source, teacher-force the prompt tokens [B, S], and
-        build the decode state. Returns (last_logits [B, V], state)."""
+        build the decode state. Returns (last_logits [B, V], state).
+
+        Under a mesh (``get_mesh()``; ``global_batch`` is then required)
+        params and inputs are the rank's blocks, the frames the rank's
+        block of their sequence over ``frames_axes`` (the input spec's
+        "seq_cp"), which ``encode`` gathers; no autograd. The logits are
+        the rank's rows, every vocabulary entry; the state the rank's
+        block: the self cache's sequence slice (``Attention.
+        seq_cache_to_state``) and every head of the cross cache."""
         cfg = self.cfg
+        mesh = get_mesh()
+        _require_batch(mesh, global_batch)
         b, s = tokens.shape
         src = cfg.max_source_len
-        enc_out = self.encode(params, frames)
-        x = self.embed(params, tokens)
-        x, caches = self.dec_seq(params, x, enc_out, collect_cache=True)
-        logits = self.logits_last(params, x[:, -1])
+        enc_out = self.encode(params, frames, mesh, frames_axes)
+        x = self.embed(params, tokens, mesh=mesh)
+        x, caches = self.dec_seq(params, x, enc_out, collect_cache=True,
+                                 mesh=mesh)
+        logits = self.logits_last(params, x[:, -1], mesh)
 
         def fit(a, n):
             """a [R, B, S, H, hd] padded with zero rows or cut to n rows."""
@@ -231,31 +249,47 @@ class EncDec(VocabEnds):
             out = a.new_zeros(a.shape[:2] + (n,) + a.shape[3:])
             out[:, :, :a.shape[2]] = a
             return out
-        # self K/V padded to the decode cache; cross K/V (the encoder's
-        # length) padded or cut to max_source_len
-        self_c = {k: fit(v, max_context) for k, v in caches["self"].items()}
-        cross_c = {k: fit(v, src) for k, v in caches["cross"].items()}
+        # self K/V padded to the decode cache (its layout on a mesh); cross
+        # K/V (the encoder's length) padded or cut to max_source_len, every
+        # head
+        self_c = _SELF.seq_cache_to_state(cfg, caches["self"], max_context,
+                                          mesh, global_batch)
+        cross_c = _CROSS.seq_cache_to_state(
+            cfg, {k: fit(v, src) for k, v in caches["cross"].items()},
+            max_context, mesh, global_batch)
         dev = tokens.device
+        n_src = frames.shape[1] * math.prod(
+            axis_sizes(mesh)[ax] for ax in frames_axes)
         state = {
             "pos": torch.full((b,), s, dtype=torch.int32, device=dev),
             "blocks": ({"mixer": {"self": self_c, "cross": cross_c}},),
-            "src_len": torch.full((b,), min(frames.shape[1], src),
+            "src_len": torch.full((b,), min(n_src, src),
                                   dtype=torch.int32, device=dev),
         }
         return logits, state
 
+    @torch.no_grad()
     def decode_step(self, params, state, tokens, max_context: int,
-                    fetch=None, src_len=None, cross_transform=None):
+                    fetch=None, src_len=None, cross_transform=None,
+                    global_batch: int = 0):
         """One token for every sequence. ``fetch(r)`` returns decoder repeat
         r's (params,) tuple, called for r = 0, 1, ..., R-1 (default: an
         index into ``params['blocks']``; MIRAGE passes one that streams
         remapped repeats from host). ``src_len`` [B] overrides the state's;
         ``cross_transform(cross)`` is applied to each repeat's cross cache
         before it is read (the reference's hook for streaming the cross
-        cache like parameters). Returns (logits [B, V], state)."""
+        cache like parameters). Returns (logits [B, V], state).
+
+        Under a mesh (``get_mesh()``; ``global_batch`` is then required)
+        everything is the rank's block, as in ``LM.decode_step``:
+        self-attention flash-decodes over the axes that split its cache,
+        cross-attention runs the rank's heads against the cross cache's,
+        the FFN is tensor-parallel, the logits are the rank's rows."""
         cfg = self.cfg
+        mesh = get_mesh()
+        _require_batch(mesh, global_batch)
         b = tokens.shape[0]
-        x = self.embed(params, tokens[:, None])[:, 0]
+        x = self.embed(params, tokens[:, None], mesh=mesh)[:, 0]
         pos = state["pos"]
         dev = pos.device
         src = cfg.max_source_len
@@ -267,14 +301,14 @@ class EncDec(VocabEnds):
                               device=dev)[None].expand(b, max_context)
         cross_pos = torch.arange(src, dtype=torch.int32,
                                  device=dev)[None].expand(b, src)
-        shared = {
+        shared = mesh_shared({
             "pos": pos,
             "slot": torch.clamp(pos, max=max_context - 1),
             "kv_pos": kv_pos,
             "kv_valid": kv_pos <= pos[:, None],
             "cross_pos": cross_pos,
             "cross_valid": cross_pos < src_len[:, None],
-        }
+        }, mesh, global_batch, max_context)
         fetch = fetch or _index_fetch(params)
         (st,) = state["blocks"]
         for r in range(self.repeats):
@@ -290,6 +324,7 @@ class EncDec(VocabEnds):
                                                        cfg.norm_eps),
                                   cross, shared, cfg)
             x = x + h
-            x = x + _FFN(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
-        logits = self.logits_last(params, x)
+            x = x + _FFN(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                         mesh, cfg)
+        logits = self.logits_last(params, x, mesh)
         return logits, dict(state, pos=pos + 1)

@@ -41,16 +41,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (
-    copy_to_region, fsdp_gather, max_over, reduce_from_region, sum_over,
+    all_gather_dim, copy_to_region, fsdp_gather, max_over,
+    reduce_from_region, sum_over,
 )
 from repro_torch.distributed.sharding import (
-    batch_axis_names, get_rules, mesh_index, spec_axes, spec_for,
+    batch_axis_names, get_mesh, get_rules, mesh_group, mesh_index,
+    spec_axes, spec_for,
 )
 from repro_torch.kernels.paged_attention.ops import (
     paged_decode_attention, paged_prefill_attention,
 )
 from repro_torch.models.blocks import (
-    MLSTM, SLSTM, Attention, Mamba, MoE, SwiGLU, _einsum, rms_norm, rope,
+    MLSTM, SLSTM, Attention, Mamba, MoE, SwiGLU, _block, _einsum,
+    mesh_shared, rms_norm, rope, rows_axes,
 )
 from repro_torch.models.common import (
     Spec, dtype_of, remat, stack_specs, tree_init, tree_map,
@@ -189,10 +192,22 @@ class VocabEnds:
             return params["embed"].T
         return params["out"]
 
-    def logits_last(self, params, x_last):
-        """x_last [B, D] -> [B, V] (f32)."""
+    def logits_last(self, params, x_last, mesh=None):
+        """x_last [B, D] -> [B, V] (f32). On a ``mesh`` x_last holds the
+        rank's rows and the head is vocab-parallel: the rank's [B, V / n]
+        block of the logits, gathered over the vocab's axes."""
         h = rms_norm(x_last, params["final_norm"], self.cfg.norm_eps)
-        return _einsum("bd,dv->bv", h, self._out_w(params))
+        name = "embed" if self.cfg.tie_embeddings else "out"
+        spec = self._spec(name, mesh)
+        w = fsdp_gather(params[name], spec, mesh)
+        if self.cfg.tie_embeddings:
+            w = w.T
+        logits = _einsum("bd,dv->bv", h, w)
+        axes = spec_axes(spec, 0 if self.cfg.tie_embeddings else 1)
+        if not axes:
+            return logits
+        return all_gather_dim(logits, mesh_group(mesh, axes), 1,
+                              "logits_all_gather").contiguous()
 
     def token_loss(self, params, x, targets, mask, chunk: int = 512,
                    mesh=None):
@@ -268,20 +283,21 @@ class LM(VocabEnds):
         return tree_init(self.specs(), generator, device)
 
     # ----------------------------------------------------------------- layers
-    def _ffn(self, ld: LayerDef, p, x, aux=None, mesh=None):
+    def _ffn(self, ld: LayerDef, p, x, aux=None, mesh=None, data=None):
         """x + the layer's FFN of x. An MoE layer appends its load-balance
         loss to the list ``aux`` where one is given (the sequence forward);
         the decode paths give none and skip computing it. ``mesh``: the
         FFN on the rank's blocks (the MoE's groups and aux loss the global
-        batch's)."""
+        batch's; ``data``: the axes that split the rows, as
+        ``MoE.route``)."""
         if ld.ffn == "none":
             return x
         h = rms_norm(x, p["norm2"], self.cfg.norm_eps)
         if ld.ffn == "dense":
             return x + _SWIGLU(p["ffn"], h, mesh, self.cfg)
         if aux is None:
-            return x + _MOE.forward(p["ffn"], h, self.cfg)[0]
-        y, a = _MOE(p["ffn"], h, self.cfg, mesh=mesh)
+            return x + _MOE.forward(p["ffn"], h, self.cfg, mesh, data)[0]
+        y, a = _MOE(p["ffn"], h, self.cfg, mesh=mesh, data=data)
         aux.append(a)
         return x + y
 
@@ -303,9 +319,12 @@ class LM(VocabEnds):
 
         ``ctx["mesh"]``: the stack over a mesh, ``params`` and x the rank's
         blocks; each weight is gathered where it is used, inside the
-        rematerialised body, so a recompute gathers again."""
+        rematerialised body, so a recompute gathers again. ``ctx["data"]``:
+        the axes that split x's rows where not every data axis does (the
+        MoE's groups, ``MoE.route``)."""
         cfg = self.cfg
         mesh = ctx.get("mesh")
+        data = ctx.get("data")
         fetch = _index_fetch(params)
         inner = remat_policy not in (None, "none") and len(self.pattern) > 1
 
@@ -313,7 +332,7 @@ class LM(VocabEnds):
             h, cache = MIXERS[ld.mixer].fwd_seq(
                 p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), ctx, cfg)
             a = []
-            x = self._ffn(ld, p, x + h, a, mesh)
+            x = self._ffn(ld, p, x + h, a, mesh, data)
             return x, (aux + a[0] if a else aux), cache
 
         def body(x, aux, layer_params):
@@ -365,14 +384,21 @@ class LM(VocabEnds):
     def _cache_len(self, max_context: int) -> int:
         return _ATTN.cache_len(self.cfg, max_context)
 
-    def state_from_prefill(self, caches, positions_end, max_context: int):
+    def state_from_prefill(self, caches, positions_end, max_context: int,
+                           mesh=None, global_batch: int = 0):
         """Build the decode state from fwd_seq caches (stacked [R, ...]): an
         attention cache is padded (or laid out as a ring) to the decode
-        cache's length; a recurrent mixer's cache IS its decode state."""
+        cache's length; a recurrent mixer's cache IS its decode state.
+
+        ``mesh`` (with the ``global_batch``): the caches and
+        ``positions_end`` hold the rank's rows and the heads its blocks
+        computed; the state is the rank's block in ``decode_state_specs``'
+        layout (each mixer's ``seq_cache_to_state``), ``kv_pos`` its
+        block of the ring's positions."""
         cfg = self.cfg
         blocks = tuple(
-            {"mixer": _ATTN.seq_cache_to_state(cfg, cache, max_context)
-             if ld.mixer == "attn" else cache}
+            {"mixer": MIXERS[ld.mixer].seq_cache_to_state(
+                cfg, cache, max_context, mesh, global_batch)}
             for ld, cache in zip(self.pattern, caches))
         pe = positions_end.to(torch.int32)
         st = {"pos": pe, "blocks": blocks}
@@ -385,32 +411,58 @@ class LM(VocabEnds):
             base = torch.clamp(pe - w, min=0)[:, None]
             tok = base + (idx - base % w) % w
             ring = torch.where(tok < pe[:, None], tok, -1)
-            st["kv_pos"] = torch.where((pe > w)[:, None], ring, kv_pos)
+            kv_pos = torch.where((pe > w)[:, None], ring, kv_pos)
+            seq = _block(mesh, self._kv_pos_axes(mesh, global_batch, w), w)
+            st["kv_pos"] = kv_pos[:, seq].contiguous()
         return st
 
-    def _decode_shared(self, state, max_context: int):
+    def _kv_pos_axes(self, mesh, batch: int, w: int):
+        """The axes that split a ring's ``kv_pos`` [batch, w] over its
+        slots (its layout, ("batch", "kv_seq")); () with no mesh."""
+        if mesh is None:
+            return ()
+        s = self.decode_state_specs(batch, w)["kv_pos"]
+        return spec_axes(spec_for(s.logical, s.shape, mesh, get_rules()), 1)
+
+    def _decode_shared(self, state, max_context: int, mesh=None,
+                       global_batch: int = 0):
         """Decode positions and validity shared by all layers (the dense
         attention caches read them; recurrent mixers ignore them). A ring's
-        ``kv_pos`` takes the new token's position at its slot, in place."""
+        ``kv_pos`` takes the new token's position at its slot, in place.
+
+        ``mesh`` (with the ``global_batch``): the rank's rows, cut by
+        ``blocks.mesh_shared`` (a ring's ``kv_pos`` state, the rank's
+        block in its own layout, is gathered whole over the axes that
+        split it first, and the rank's block written back)."""
         pos = state["pos"]
         b = pos.shape[0]
         s_c = self._cache_len(max_context)
+        rows = torch.arange(b, device=pos.device)
         if self.cfg.sliding_window:
             slot = pos % s_c
             kv_pos = state["kv_pos"]
-            kv_pos[torch.arange(b, device=pos.device), slot.long()] = pos
+            axes = self._kv_pos_axes(mesh, global_batch, s_c)
+            if axes:
+                whole = all_gather_dim(kv_pos, mesh_group(mesh, axes), 1,
+                                       "kv_pos_all_gather").contiguous()
+                whole[rows, slot.long()] = pos
+                kv_pos.copy_(whole[:, _block(mesh, axes, s_c)])
+                kv_pos = whole
+            else:
+                kv_pos[rows, slot.long()] = pos
             kv_valid = kv_pos >= 0
         else:
             slot = torch.clamp(pos, max=s_c - 1)
             kv_pos = torch.arange(s_c, dtype=torch.int32,
                                   device=pos.device)[None].expand(b, s_c)
             kv_valid = kv_pos <= pos[:, None]
-        return {"pos": pos, "slot": slot, "kv_pos": kv_pos,
-                "kv_valid": kv_valid}
+        return mesh_shared({"pos": pos, "slot": slot, "kv_pos": kv_pos,
+                            "kv_valid": kv_valid}, mesh, global_batch, s_c)
 
     # ------------------------------------------------------------- decode step
+    @torch.no_grad()
     def decode_step(self, params, state, tokens, max_context: int,
-                    fetch=None):
+                    fetch=None, global_batch: int = 0):
         """One token for every sequence against the dense decode state.
         Returns (logits [B, V], state); each layer's state is overwritten in
         place with what its mixer returns (attention returns nothing: its
@@ -418,20 +470,30 @@ class LM(VocabEnds):
         cache). ``fetch(r)`` returns repeat r's
         layer-params tuple (default: an index into ``params['blocks']``;
         MIRAGE passes one that streams remapped repeats from host). Call
-        order is r = 0, 1, ..., R-1."""
+        order is r = 0, 1, ..., R-1.
+
+        Under a mesh (``get_mesh()``; ``global_batch`` is then required)
+        params, fetched layers, state and tokens are the rank's blocks
+        (``Model.decode_state_shardings``), the blocks run heads-parallel,
+        FFNs tensor- or expert-parallel, attention's flash-decode over the
+        axes that split the cache; no autograd. The logits are the rank's
+        rows, every vocabulary entry."""
         cfg = self.cfg
-        x = self.embed(params, tokens[:, None])[:, 0]
-        shared = self._decode_shared(state, max_context)
+        mesh = get_mesh()
+        data = _require_batch(mesh, global_batch)
+        x = self.embed(params, tokens[:, None], mesh=mesh)[:, 0]
+        shared = self._decode_shared(state, max_context, mesh,
+                                     global_batch)
         fetch = fetch or _index_fetch(params)
         for r in range(self.repeats):
             for ld, p, st in zip(self.pattern, fetch(r), state["blocks"]):
                 h, new = MIXERS[ld.mixer].fwd_dec(
                     p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps),
                     _index(st["mixer"], r), shared, cfg)
-                x = self._ffn(ld, p, x + h)
+                x = self._ffn(ld, p, x + h, mesh=mesh, data=data)
                 for key, val in new.items():
                     st["mixer"][key][r].copy_(val)
-        logits = self.logits_last(params, x)
+        logits = self.logits_last(params, x, mesh)
         return logits, dict(state, pos=state["pos"] + 1)
 
     # ------------------------------------------------------- paged decode
@@ -551,22 +613,45 @@ class LM(VocabEnds):
                 "ctx": lengths.to(torch.int32)}
 
     # --------------------------------------------------------------- prefill
+    @torch.no_grad()
     def prefill(self, params, tokens, max_context: int, prefix_embeds=None,
-                lengths=None):
+                lengths=None, global_batch: int = 0):
         """tokens [B, St] (after ``prefix_embeds`` [B, P, D] where given) ->
         (last_logits [B, V], dense decode state). ``lengths`` [B]: each
         row's real length of the S = P + St rows (default S); the logits
-        are those of row ``lengths - 1`` and decode continues there."""
+        are those of row ``lengths - 1`` and decode continues there.
+
+        Under a mesh (``get_mesh()``; ``global_batch`` is then required)
+        params and inputs are the rank's blocks (the rows of tokens, prefix
+        and lengths), the stack runs as ``fwd_seq`` does on a mesh, without
+        autograd, the logits are the rank's rows (every vocabulary entry)
+        and the state the rank's block (``state_from_prefill``)."""
+        mesh = get_mesh()
+        data = _require_batch(mesh, global_batch)
         b = tokens.shape[0]
-        x = self.embed(params, tokens, prefix_embeds)
+        x = self.embed(params, tokens, prefix_embeds, mesh=mesh)
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        x, _aux, caches = self.fwd_seq(params, x, {"positions": positions},
-                                       collect_cache=True)
+        x, _aux, caches = self.fwd_seq(
+            params, x, {"positions": positions, "mesh": mesh, "data": data},
+            collect_cache=True)
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
         logits = self.logits_last(params, x[torch.arange(b, device=x.device),
-                                            last])
-        return logits, self.state_from_prefill(caches, lengths, max_context)
+                                            last], mesh)
+        return logits, self.state_from_prefill(caches, lengths, max_context,
+                                               mesh, global_batch)
+
+
+def _require_batch(mesh, batch: int):
+    """The axes that split the rows of a serving batch of ``batch`` rows
+    on ``mesh`` (``blocks.rows_axes``); None with no mesh. A mesh needs
+    the global batch: the rank holds its rows only."""
+    if mesh is None:
+        return None
+    if batch <= 0:
+        raise ValueError("serving over a mesh needs global_batch= (the "
+                         "rank holds its rows only)")
+    return rows_axes(mesh, batch)

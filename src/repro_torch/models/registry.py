@@ -94,24 +94,54 @@ class Model:
         return loss + 0.01 * aux
 
     # ---------------------------------------------------------------- serving
-    def prefill(self, params, batch, max_context: int):
+    def prefill(self, params, batch, max_context: int, shape=None):
         """``batch``: "tokens" [B, S]; an enc-dec config's "frames" [B,
         S_enc, D]; a VLM's optional "patch_embeds" [B, P, D] and
-        "lengths" [B]."""
+        "lengths" [B]. Returns (last logits [B, V], the decode state).
+
+        Under a mesh (``get_mesh()``) ``params`` and ``batch`` are the
+        rank's blocks (``param_shardings``, ``batch_shardings(shape)``),
+        ``shape`` is the cell's ``ShapeConfig`` (its global batch; an
+        enc-dec config's frames split their sequence as its input spec
+        says), and the state is the rank's block of
+        ``decode_state_shardings``."""
+        mesh = get_mesh()
+        b = 0
+        if mesh is not None:
+            if shape is None:
+                raise ValueError(f"{self.cfg.name}: a prefill over a mesh "
+                                 "needs its shape (the global batch)")
+            b = shape.global_batch
         if self.cfg.is_encoder_decoder:
+            frames_axes = () if mesh is None else \
+                self.batch_shardings(shape, mesh)["frames"].axes(1)
             return self.impl.prefill(params, batch["frames"], batch["tokens"],
-                                     max_context)
+                                     max_context, global_batch=b,
+                                     frames_axes=frames_axes)
         return self.impl.prefill(params, batch["tokens"], max_context,
                                  prefix_embeds=batch.get("patch_embeds"),
-                                 lengths=batch.get("lengths"))
+                                 lengths=batch.get("lengths"),
+                                 global_batch=b)
 
     def decode_step(self, params, state, tokens, max_context: int,
-                    fetch=None):
+                    fetch=None, global_batch: int = 0, **kwargs):
+        """One token for every row (``kwargs``: an enc-dec config's
+        ``src_len`` and ``cross_transform``). Under a mesh the rank's
+        blocks, as ``prefill``'s; ``global_batch`` is then required."""
         return self.impl.decode_step(params, state, tokens, max_context,
-                                     fetch=fetch)
+                                     fetch=fetch, global_batch=global_batch,
+                                     **kwargs)
 
     def decode_state_specs(self, batch: int, max_context: int):
         return self.impl.decode_state_specs(batch, max_context)
+
+    def decode_state_shardings(self, batch: int, max_context: int, mesh,
+                               rules=None):
+        """The ``NamedSharding`` of every decode-state leaf on ``mesh``
+        under ``rules`` (default: the ambient context's): the reference's
+        ``abstract_decode_state`` placement."""
+        return tree_shardings(self.decode_state_specs(batch, max_context),
+                              mesh, rules)
 
     def init_decode_state(self, batch: int, max_context: int, device="cuda"):
         return self.impl.init_decode_state(batch, max_context, device)
@@ -127,7 +157,7 @@ class Model:
         out = tree_shardings(self.input_spec_tree(shape), mesh, rules)
         b = shape.global_batch
         shards = num_data_shards(mesh)
-        if self.cfg.moe is not None and \
+        if self.cfg.moe is not None and shape.kind == "train" and \
                 out["tokens"].local_shape((b,))[0] * shards != b:
             raise ValueError(
                 f"{self.cfg.name}: an MoE config over a mesh needs a global "
@@ -135,16 +165,20 @@ class Model:
         return out
 
     def input_spec_tree(self, shape: ShapeConfig):
-        """Spec tree of a train batch, the reference's: the batch dim is
+        """Spec tree of a cell's inputs, the reference's: the batch dim is
         logical "batch" (``launch.shardings.batch_shardings`` splits it
         over the data axes); an enc-dec config's frames [B, S, D] split
-        their sequence as "seq_cp", beside decoder tokens, targets and mask
-        of ``WHISPER_DECODER_LEN``; a VLM's patch embeddings [B, P, D] (P =
-        min(patches, S - 1)) come ahead of S - P tokens, with targets and
-        mask over all S positions."""
+        their sequence as "seq_cp", beside decoder tokens of
+        ``WHISPER_DECODER_LEN``; a VLM's patch embeddings [B, P, D] (P =
+        min(patches, S - 1)) come ahead of S - P tokens. A train cell adds
+        targets and mask (over all S positions); a decode cell is one
+        token a row, [B]."""
         cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
         dt = dtype_of(cfg)
+        train = shape.kind == "train"
+        if shape.kind == "decode":
+            return {"tokens": Spec((b,), ("batch",), torch.int32, "zeros")}
 
         def tok(n):
             return Spec((b, n), ("batch", None), torch.int32, "zeros")
@@ -153,9 +187,12 @@ class Model:
             return Spec((b, n), ("batch", None), torch.float32, "ones")
         if cfg.is_encoder_decoder:
             n = WHISPER_DECODER_LEN
-            return {"frames": Spec((b, s, cfg.d_model),
-                                   ("batch", "seq_cp", None), dt, "normal"),
-                    "tokens": tok(n), "targets": tok(n), "mask": ones(n)}
+            out = {"frames": Spec((b, s, cfg.d_model),
+                                  ("batch", "seq_cp", None), dt, "normal"),
+                   "tokens": tok(n)}
+            if train:
+                out.update(targets=tok(n), mask=ones(n))
+            return out
         out = {}
         s_text = s
         if cfg.num_image_patches:
@@ -163,7 +200,9 @@ class Model:
             s_text = s - p
             out["patch_embeds"] = Spec((b, p, cfg.d_model),
                                        ("batch", None, None), dt, "normal")
-        out.update(tokens=tok(s_text), targets=tok(s), mask=ones(s))
+        out["tokens"] = tok(s_text)
+        if train:
+            out.update(targets=tok(s), mask=ones(s))
         return out
 
     @staticmethod

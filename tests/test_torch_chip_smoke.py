@@ -905,3 +905,69 @@ def test_encdec_vlm_phase_runs_are_cut_in_depth_only():
         if name == "whisper":
             assert sh["embed"].spec == (None, "data")
     assert chip_smoke.MESH_LAYOUT == (2, 2)
+
+
+@pytest.fixture
+def mesh_serve_on_cpu(monkeypatch):
+    """Phase 19 at a small width on the CPU: the scaled llama at 8 layers
+    (f32: the bf16 rounding of a 128-wide model moves its logits by ~2e-2
+    of a row, ROW_RTOL's bf16 limit), 2 x 32 prompt tokens, a 64-token
+    cache."""
+    cfg = scaled_config(ARCHS["llama3-8b"], num_layers=8)
+    for name, value in (("DEVICE", "cpu"), ("SERVE_MESH_CFG", cfg),
+                        ("SERVE_MESH_PROMPT", 32),
+                        ("SERVE_MESH_CONTEXT", 64)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_mesh_serve_phase_runs(mesh_serve_on_cpu, capsys):
+    """Phase 19 on 4 gloo ranks on the CPU: the mesh's logits against one
+    rank's, every greedy token equal, the remap tier bitwise, and the
+    printouts (times, collectives by kind, peak memory, flash launches)."""
+    counts = chip_smoke.phase_mesh_serve([])
+    assert counts["flash_attention"] == 0          # the plain versions
+    out = capsys.readouterr().out
+    line = next(x for x in out.splitlines() if "logits row_err" in x)
+    assert "equal to one rank's 34 of 34" in line
+    worst = float(line.split("worst ")[1].split()[0])
+    assert worst <= chip_smoke.ROW_RTOL[torch.float32]
+    for kind in ("cache_all_to_all", "logits_all_gather", "tp_all_reduce"):
+        assert kind in next(x for x in out.splitlines()
+                            if "collectives of rank 0's prefill" in x)
+    for kind in ("decode_combine", "decode_heads_all_gather",
+                 "decode_tp_all_reduce"):
+        assert kind in next(x for x in out.splitlines()
+                            if "collectives of rank 0's last decode" in x)
+    assert "bitwise equal to (a) on every rank: True" in out
+    assert "alpha 2, m 3, beta 1" in out
+    assert "peak memory per rank" in out
+    assert "flash launches per rank in the prefill: 0, 0, 0, 0" in out
+
+
+def test_mesh_serve_phase_sees_a_wrong_decode(mesh_serve_on_cpu,
+                                              monkeypatch):
+    """A mesh decode that departs from one rank's fails the phase: here
+    the one-rank reference's decode reads its tokens one place off (the
+    spawned ranks import the script afresh and keep theirs)."""
+    real = chip_smoke.mesh_serve_reference
+    monkeypatch.setattr(chip_smoke, "mesh_serve_reference",
+                        lambda sp, tokens: real(sp, tokens[1:] + tokens[:1]))
+    with pytest.raises(SystemExit, match="logits off one rank"):
+        chip_smoke.phase_mesh_serve([])
+
+
+def test_mesh_serve_phase_is_llama3_8b_cut_in_depth():
+    """Phase 19 serves llama3-8b at full width, 8 of its 32 layers, on
+    phase 16's (2, 2) mesh under SERVING_RULES: each rank's prefill runs
+    flash on 16 query and 4 KV heads over its row of 2048 tokens; the
+    remap tier 0.25 donates 2 of the 8 repeats."""
+    cfg = chip_smoke.SERVE_MESH_CFG
+    full = ARCHS["llama3-8b"]
+    assert dataclasses.replace(cfg, num_layers=full.num_layers) == full
+    assert cfg.num_layers == 8
+    assert (chip_smoke.SERVE_MESH_BATCH, chip_smoke.SERVE_MESH_PROMPT,
+            chip_smoke.SERVE_MESH_STEPS) == (2, 2048, 16)
+    assert chip_smoke.SERVE_MESH_CONTEXT >= 2048 + 16
+    from repro_torch.core.transfer_engine import tier_plan
+    plan = tier_plan(cfg.num_layers, chip_smoke.SERVE_MESH_TIER)
+    assert (plan.alpha, plan.m, plan.beta) == (2, 3, 1)

@@ -10,8 +10,9 @@ single-device ``decode_attention``, and through ``Attention.fwd_dec``
 under that mesh's context. The cases: B=1 with the sequence over every
 axis (``kv_seq_full``; some ranks' slices hold no valid key), B=4 with the
 batch over "data", a sliding window. f32 throughout, held within 1e-5.
-``fwd_dec`` under a mesh must also equal the port's own on one rank: its
-output within 1e-5, the cache the ranks' slices make up exactly; beside
+``fwd_dec`` under a mesh (on each rank's rows) must also equal the port's
+own on one rank: its output within 1e-5, the cache the ranks' slices make
+up exactly; beside
 caches split over every axis, one split partly (over "data" alone) and
 two that stay whole (a length no axis divides, rules that map kv_seq to
 no axis), which decode locally as the reference's do."""
@@ -157,11 +158,18 @@ def test_distributed_decode_matches_jax(runs, case, world):
 @pytest.mark.parametrize("case", sorted(td.FWD_CASES))
 def test_fwd_dec_under_a_mesh_matches_one_rank_and_jax(runs, case, world):
     z, ref, parts = runs["inputs"], runs["jax"], runs[world]
-    y1, k1, v1 = td.fwd_dec(z, case)             # one rank, no mesh
+    # one rank, no mesh, on each block of rows a rank holds (the rows'
+    # projections then round as the mesh's do)
     b = len(td.FWD_CASES[case][1])
-    for p in parts:
-        np.testing.assert_allclose(p[f"{case}/y"], y1, atol=TOL, rtol=0)
-        np.testing.assert_allclose(p[f"{case}/y"], ref[f"{case}/y"],
+    y1, k1, v1 = td.fwd_dec(z, case)
+    for r0, r1 in {tuple(p[f"{case}/rows"]) for p in parts}:
+        y1[r0:r1], k1[r0:r1], v1[r0:r1] = td.fwd_dec(z, case,
+                                                     slice(r0, r1))[:3]
+    for p in parts:                              # each rank's rows
+        r0, r1 = p[f"{case}/rows"]
+        np.testing.assert_allclose(p[f"{case}/y"], y1[r0:r1], atol=TOL,
+                                   rtol=0)
+        np.testing.assert_allclose(p[f"{case}/y"], ref[f"{case}/y"][r0:r1],
                                    atol=TOL, rtol=0)
     for n, whole in (("k", k1), ("v", v1)):
         cache = td.gather_cache(parts, case, n)

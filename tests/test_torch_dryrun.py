@@ -4,8 +4,11 @@ against the reference's shard bytes (a JAX subprocess on 512 forced host
 devices, ``abstract_params``, ``opt_shardings``, ``abstract_inputs`` and
 ``shard_shape``, no compile); the collectives of a dry-run step on a fake
 (2, 2) group against those of the same step on 4 real gloo ranks;
-``benchmarks/roofline.py`` reading a port artifact unedited; the serving
-cells' refusal; and the reference's byte rule of a reduce-scatter."""
+``benchmarks/roofline.py`` reading a port artifact unedited; serving
+cells on the fake world (decode at the remap tiers, the cross-K/V remap,
+long_500k, prefill) with their argument bytes and ``mirage`` extras
+against the reference's shard bytes; the ``head-tp`` profile's ``WAIT``;
+and the reference's byte rule of a reduce-scatter."""
 import json
 import os
 import subprocess
@@ -35,6 +38,17 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCH_CELLS = ("llama3-8b", "moonshot-v1-16b-a3b", "whisper-medium",
               "llava-next-34b", "xlstm-1.3b")
 MESHES = ("single_pod", "multi_pod")
+# (mesh, arch, shape, remap tier) of the serving cells run on the fake
+# world: llama3-8b's decode at tiers 0 and 0.25 (the layers' remap),
+# whisper's cross-K/V remap, a long_500k cell (one row: the cache's
+# sequence over every axis) and a prefill cell
+SERVE_CELLS = (("single_pod", "llama3-8b", "decode_32k", 0.0),
+               ("single_pod", "llama3-8b", "decode_32k", 0.25),
+               ("multi_pod", "llama3-8b", "decode_32k", 0.25),
+               ("single_pod", "whisper-medium", "decode_32k", 0.25),
+               ("single_pod", "h2o-danube-3-4b", "long_500k", 0.0),
+               ("multi_pod", "h2o-danube-3-4b", "long_500k", 0.0),
+               ("single_pod", "llama3-8b", "prefill_32k", 0.0))
 
 JAX_BYTES = r"""
 import json, sys, warnings
@@ -57,7 +71,53 @@ def rank_bytes(tree, shardings=None):
     return sum(int(np.prod(sh.shard_shape(a.shape))) * a.dtype.itemsize
                for a, sh in zip(leaves, shs))
 
+# _lower_remap_decode's plan and stacks, their bytes a device
+def remap_bytes(model, mesh, tier):
+    from repro.core import make_plan
+    from repro.distributed.sharding import sharding_for
+    from repro.models.common import is_spec
+    r = model.repeats
+    alpha = max(int(round(tier * r)), 1)
+    plan = make_plan(r, alpha, t_c=1.0, t_t=1e-9, double_buffer=True)
+
+    def stack(n):
+        total = 0
+        for sp in jax.tree.leaves(model.specs()["blocks"], is_leaf=is_spec):
+            shp = (n,) + sp.shape[1:]
+            sh = sharding_for(sp.logical, shp, mesh, DEFAULT_RULES)
+            total += int(np.prod(sh.shard_shape(shp))) * \
+                np.dtype(sp.dtype).itemsize
+        return total
+    return {"alpha": alpha, "m": plan.m,
+            "cycle_bytes_per_device": stack(len(plan.cycle_layers)),
+            "resident_bytes_per_device": stack(len(plan.resident_layers))}
+
 out = {}
+for mesh_name, arch, shape_name, tier in json.loads(sys.argv[2]):
+    mesh = make_production_mesh(multi_pod=mesh_name == "multi_pod")
+    model = build_model(get_arch(arch))
+    shape = SHAPES_BY_NAME[shape_name]
+    with mesh_context(mesh, DEFAULT_RULES):
+        rec = {"params": rank_bytes(model.abstract_params(mesh,
+                                                          DEFAULT_RULES))}
+        if shape.kind == "prefill":
+            rec["inputs"] = rank_bytes(model.abstract_inputs(
+                shape, mesh, DEFAULT_RULES))
+        else:
+            state = model.abstract_decode_state(
+                shape.global_batch, shape.seq_len, mesh, DEFAULT_RULES)
+            rec["state"] = rank_bytes(state)
+            rec["inputs"] = rec["state"] + rank_bytes(
+                model.abstract_inputs(shape, mesh, DEFAULT_RULES))
+            if tier and model.cfg.is_encoder_decoder:
+                cross = rank_bytes(state["blocks"][0]["mixer"]["cross"])
+                rec["mirage"] = {"cross_kv_host_bytes_per_device": cross,
+                                 "alpha": 0, "m": 0,
+                                 "cycle_bytes_per_device": cross,
+                                 "resident_bytes_per_device": 0}
+            elif tier:
+                rec["mirage"] = remap_bytes(model, mesh, tier)
+    out[f"{mesh_name}/{arch}/{shape_name}/{tier:g}"] = rec
 shape = SHAPES_BY_NAME["train_4k"]
 for mesh_name in ("single_pod", "multi_pod"):
     mesh = make_production_mesh(multi_pod=mesh_name == "multi_pod")
@@ -87,7 +147,8 @@ def reference_bytes():
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
                                            os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
-        [sys.executable, "-c", JAX_BYTES, ",".join(ARCH_CELLS)], env=env,
+        [sys.executable, "-c", JAX_BYTES, ",".join(ARCH_CELLS),
+         json.dumps(SERVE_CELLS)], env=env,
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -187,19 +248,61 @@ def test_roofline_reads_a_port_artifact(dry_2x2, tmp_path):
     assert "llama3-8b" in roofline.table(recs)
 
 
-@pytest.mark.parametrize("shape,tier", [("prefill_32k", 0.0),
-                                        ("decode_32k", 0.0),
-                                        ("decode_32k", 0.25)])
-def test_serving_cells_wait_for_9d(shape, tier, tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="9d"):
-        dryrun.lower_cell("llama3-8b", shape, None, remap_tier=tier)
-    argv = ["--arch", "llama3-8b", "--shape", shape, "--mesh",
-            "single_pod", "--out-dir", str(tmp_path)]
+@pytest.mark.parametrize("cell", SERVE_CELLS,
+                         ids=["/".join(map(str, c)) for c in SERVE_CELLS])
+def test_serving_cell_bytes_are_the_references(reference_bytes, cell,
+                                               tmp_path, capsys):
+    """A serving cell through ``main`` on the fake world prints OK; its
+    argument bytes are the reference's shard bytes of the params and the
+    inputs (a decode cell's: the decode state and the tokens); a remap
+    cell's ``mirage`` extras are the reference's: the plan's alpha and m,
+    the bytes a device of the cycle and resident stacks, or the cross
+    K/V's. The port's enc-dec state also holds ``src_len`` ([B] int32,
+    the rank's rows), which the reference's decode state spec lacks
+    (ROADMAP queue 3); it adds the rank's rows x 4 bytes."""
+    mesh_name, arch, shape_name, tier = cell
+    argv = ["--arch", arch, "--shape", shape_name, "--mesh", mesh_name,
+            "--out-dir", str(tmp_path)]
     if tier:
         argv += ["--remap-tier", str(tier)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert dryrun.main(argv) == 0
+    assert "1 ok, 0 wait, 0 failed" in capsys.readouterr().out
+    tag = dryrun.cell_tag(arch, shape_name, remap_tier=tier)
+    rec = json.loads((tmp_path / mesh_name / (tag + ".json")).read_text())
+    ref = reference_bytes[f"{mesh_name}/{arch}/{shape_name}/{tier:g}"]
+    shape = SHAPES_BY_NAME[shape_name]
+    extra = 0
+    if ARCHS[arch].is_encoder_decoder and shape.kind == "decode":
+        layout = production_layout(multi_pod=mesh_name == "multi_pod")
+        extra = 4 * shape.global_batch // layout.shape["data"] // (
+            layout.shape.get("pod", 1))
+    assert rec["memory"]["argument_bytes"] == \
+        ref["params"] + ref["inputs"] + extra
+    assert rec.get("mirage") == ref.get("mirage")
+    assert rec["memory"]["output_bytes"] > 0 and rec["memory"][
+        "temp_bytes"] > 0 and rec["cost_analysis_raw"]["flops"] > 0
+    # the decode state is updated in place: the reference's donated
+    # argument (its cross-K/V cell donates nothing)
+    donated = shape.kind == "decode" and not (
+        tier and ARCHS[arch].is_encoder_decoder)
+    assert rec["memory"]["alias_bytes"] == (ref["state"] if donated else 0)
+    assert rec["collectives"]["total_bytes"] > 0
+
+
+def test_head_tp_waits_for_9e(tmp_path, capsys):
+    """The head-tp profile, which splits head_dim, still waits, for ROADMAP
+    item 9e; ``main`` prints it as WAIT and exits 0."""
+    with pytest.raises(NotImplementedError, match="9e"):
+        dryrun.lower_cell("xlstm-1.3b", "decode_32k", None,
+                          profile="head-tp")
+    argv = ["--arch", "xlstm-1.3b", "--shape", "decode_32k", "--mesh",
+            "single_pod", "--profile", "head-tp", "--out-dir",
+            str(tmp_path)]
     assert dryrun.main(argv) == 0
     out = capsys.readouterr().out
-    assert "WAIT" in out and "9d" in out and "0 ok, 1 wait, 0 failed" in out
+    assert "WAIT" in out and "9e" in out and "0 ok, 1 wait, 0 failed" in out
 
 
 def test_reduce_scatter_counts_its_result_bytes():

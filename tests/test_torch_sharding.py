@@ -163,22 +163,27 @@ def test_mesh_helpers_and_context_match_jax():
                                    {"data": 2, "model": 1},
                                    {"pod": 2, "data": 16, "model": 16}])
 def test_decode_cache_axes_match_jax(sizes):
-    """``_kv_shard_axes`` and ``_batch_shard_axes`` give the reference's
-    axes for every batch and cache length, and ``decode_layout`` the
-    route its ``fwd_dec`` takes: the kv axes with the batch axes where
-    those split the sequence (wholly or partly), none where they do not."""
+    """``decode_layout`` gives the reference's state layout for every
+    batch and cache length, which the port's ``fwd_dec`` follows: the
+    axes that split the sequence and the rows of the cache its
+    ``init_state`` specifies; where the reference flash-decodes, those
+    are the kv and batch axes its ``fwd_dec`` takes (``_kv_shard_axes``,
+    ``_batch_shard_axes``)."""
     mesh = FakeMesh(sizes)
+    cfg = ARCHS["llama3-8b"]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         for b in (1, 2, 3, 4, 8):
             for s in (31, 34, 48, 64, 1000, 4096, 131072):
                 shape = (b, s, 8, 128)
                 kv = jblocks._kv_shard_axes(mesh, shape)
-                assert tblocks._kv_shard_axes(mesh, shape) == kv
                 ba = jblocks._batch_shard_axes(mesh, b, kv)
-                assert tblocks._batch_shard_axes(mesh, b, kv) == ba
-                want = (kv, ba) if kv else ((), ())
+                st = jblocks.Attention().init_state(cfg, b, s)["k"]
+                spec = jsh.spec_for(st.logical, shape, mesh, jsh.DEFAULT_RULES)
+                want = (tsh.spec_axes(spec, 1), tsh.spec_axes(spec, 0))
                 assert tblocks.decode_layout(mesh, b, s) == want, (b, s)
+                if kv:
+                    assert want == (kv, ba), (b, s)
 
 
 @pytest.mark.parametrize("cache,rules", [(31, {}), (32, {"kv_seq": ()})])

@@ -66,21 +66,24 @@ def make_inputs(seed: int = 0) -> dict:
 
 
 def fwd_dec(z: dict, name: str, rows=slice(None), seq=slice(None)):
-    """``Attention.fwd_dec`` of case ``name`` on the CPU: the whole batch's
-    x, pos and slot, the state and kv_pos/kv_valid cut to ``rows`` and
-    ``seq`` (``cache_len`` the whole cache's). Returns (y, the state's k,
-    v) as numpy arrays."""
+    """``Attention.fwd_dec`` of case ``name`` on the CPU: x, pos, slot,
+    the state and kv_pos/kv_valid cut to ``rows``, the state and kv_pos/
+    kv_valid to ``seq`` (``cache_len`` the whole cache's, ``batch`` the
+    whole batch). Returns (y of the rows, the state's k, v) as numpy
+    arrays."""
     import torch
     from repro_torch.models.blocks import Attention
     t = {k: torch.from_numpy(np.array(v)) for k, v in z.items()
          if k.startswith((name + "/", "params/"))}
     p = {k.split("/")[1]: v for k, v in t.items() if k.startswith("params/")}
     state = {n: t[f"{name}/{n}"][rows, seq].contiguous() for n in ("k", "v")}
-    pos = t[f"{name}/pos"]
+    pos = t[f"{name}/pos"][rows]
     shared = {"pos": pos, "slot": pos, "cache_len": FWD_CASES[name][0],
+              "batch": len(FWD_CASES[name][1]),
               "kv_pos": t[f"{name}/kv_pos"][rows, seq],
               "kv_valid": t[f"{name}/kv_valid"][rows, seq]}
-    y, _ = Attention().fwd_dec(p, t[f"{name}/x"], state, shared, fwd_cfg())
+    y, _ = Attention().fwd_dec(p, t[f"{name}/x"][rows], state, shared,
+                               fwd_cfg())
     return y.numpy(), state["k"].numpy(), state["v"].numpy()
 
 

@@ -54,6 +54,11 @@ def _cases(rank, dev):
         dist.broadcast(y, 0)
         return y
 
+    def all_to_all_single():
+        out = torch.empty(4, device=dev)
+        dist.all_to_all_single(out, x.clone())
+        return out
+
     return {
         "all_gather (list)": (all_gather_list, both),
         "all_gather_into_tensor": (all_gather_tensor, both),
@@ -63,6 +68,10 @@ def _cases(rank, dev):
         "all_reduce MAX": (all_reduce(dist.ReduceOp.MAX),
                            torch.arange(4.0, device=dev) + 1),
         "broadcast": (broadcast, torch.arange(4.0, device=dev)),
+        # rank r receives [x_0[2r:2r+2], x_1[2r:2r+2]]
+        "all_to_all_single": (all_to_all_single, torch.tensor(
+            [2.0 * rank, 2.0 * rank + 1, 2.0 * rank + 1, 2.0 * rank + 2],
+            device=dev)),
     }
 
 
