@@ -180,7 +180,20 @@ no CUDA device or any phase fails. Phases:
    prefill and decode wall times (gloo), the collectives by kind, the
    peak memory a rank, flash's launches a rank, and flash at the rank's
    prefill shape (a shape row).
-20. the kernels line (JSON; launches summed over phases 3-19; each kernel's
+20. examples: the torch twins of the six examples (``examples/*_torch.py``:
+   quickstart's remap, the three-tenant engine, multi-turn prefix sharing,
+   the replica fleet's simulator, the danube ring with the flash-decode on
+   2 spawned ranks, train_100m's 200 steps) on the card at their own
+   sizes, each held to its JAX script's check; each twin's kernel launches
+   and seconds.
+21. head-tp: the dry run's head-tp rules (head_dim over "model", the heads
+   whole) on phase 16's (2, 2) mesh: xlstm-1.3b at full width (4 heads of
+   512) cut to 8 layers (7 mLSTM, its sLSTM), bf16, each rank on head_dim
+   blocks of 256 (ssd_scan at dk 512, dv 257: phase 2 holds that shape);
+   the prefill's logits row by row and 4 greedy decode tokens against one
+   rank on the same weights, and one AdamW step: its loss and each leaf's
+   update against one rank's.
+22. the kernels line (JSON; launches summed over phases 3-21; each kernel's
    ``shapes`` lists phase 2's timed shape rows and phases 14, 16 and 19's
    flash rows) and, last, the result line (JSON).
 """
@@ -1056,9 +1069,12 @@ def _rel(out, ref) -> float:
 
 # phase 17's ssd_scan shapes on a rank of the (2, 2) mesh: (b, T, H, dk,
 # dv, mLSTM): jamba's Mamba (64 of its 128 heads, one 2048-token row) and
-# xlstm's mLSTM (2 of its 4 heads, one 512-token row)
+# xlstm's mLSTM (2 of its 4 heads, one 512-token row); phase 21's under
+# the head-tp rules: every head, q/k gathered to dk 512, v its head_dim
+# block of 256 plus the normalizer column
 SSD_RANK_SHAPES = {"jamba_mesh_rank": (1, 2048, 64, 16, 64, False),
-                   "xlstm_mesh_rank": (1, 512, 2, 512, 513, True)}
+                   "xlstm_mesh_rank": (1, 512, 2, 512, 513, True),
+                   "xlstm_head_tp_rank": (1, 512, 4, 512, 257, True)}
 
 
 def check_ssd_rank_shapes(gen, rows):
@@ -4369,6 +4385,358 @@ def phase_mesh_serve(shape_rows):
     return counts
 
 
+# --------------------------------------------------------------- phase 20
+# the torch twins of the six examples (examples/*_torch.py) at their own
+# sizes, each held to its JAX script's check inside its ``main`` (an
+# assertion); (module, its arguments before ``--device``, whether it takes
+# a device)
+TWINS = (("quickstart_torch", [], True),
+         ("multi_tenant_serving_torch", [], True),
+         ("multi_turn_serving_torch", [], True),
+         ("multi_replica_serving_torch", [], False),
+         ("long_context_decode_torch", [], True),
+         ("train_100m_torch", [], True))
+
+
+def phase_examples():
+    """Phase 20: each twin of ``TWINS`` through its ``main`` on
+    ``DEVICE``; the kernels' launches of each (the counts set to 0 just
+    before it and read just after), its seconds and its result. A twin
+    whose check fails fails the phase. Returns the launch counts."""
+    import importlib
+    card = _card()
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    counts = Counter()
+    for name, argv, takes_device in TWINS:
+        mod = importlib.import_module(name)
+        args = list(argv) + (["--device", DEVICE] if takes_device else [])
+        _sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = mod.main(args)
+        except Exception as e:  # noqa: BLE001 - a twin's failed check
+            fail(f"examples: {name} {args}: {type(e).__name__}: {e}")
+        _sync()
+        seconds = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        counts.update(c)
+        log(f"[examples] {name} {' '.join(args)}: its check held in "
+            f"{seconds:.1f} s on {card}; kernel launches {dict(c)}; "
+            f"{_twin_summary(name, res)}")
+        del mod, res
+        _free()
+    return counts
+
+
+def _twin_summary(name: str, res: dict) -> str:
+    if name == "quickstart_torch":
+        return (f"tokens {res['plain']} with and without the remap, "
+                f"{res['freed']:,} of {res['full']:,} block bytes freed")
+    if name == "multi_tenant_serving_torch":
+        return (f"{res['finished']} finished, remap state {res['remap']}, "
+                f"{res['transfers']}")
+    if name == "multi_turn_serving_torch":
+        return f"saved prefill tokens {res['saved_prefill_tokens']}"
+    if name == "long_context_decode_torch":
+        return (f"ring err {res['ring_err']:.3g}, flash-decode err "
+                f"{res['flash_decode_err']:.3g}")
+    if name == "train_100m_torch":
+        return (f"loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f} "
+                f"over {len(res['losses'])} steps in "
+                f"{res['seconds']:.1f} s")
+    return json.dumps(res)
+
+
+# --------------------------------------------------------------- phase 21
+# the dry run's head-tp rules (``launch.dryrun.profile_rules``: head_dim
+# over "model", the heads whole, the serving profile otherwise) on phase
+# 16's (2, 2) mesh of MESH_WORLD ranks sharing the card: xlstm-1.3b at full
+# width (4 heads of 512) cut to 8 of its 48 layers, which holds its sLSTM
+# (layer 7, slstm_period 8), bf16; each rank holds head_dim blocks of 256,
+# its ssd_scan runs on one row of 512 tokens at dk 512 and dv 257. Against
+# one rank on the same weights: the prefill's logits row by row
+# (ROW_RTOL), HEADTP_STEPS greedy decode steps (the one-rank reference
+# teacher-forced with the mesh's tokens: each of its greedy tokens equal),
+# and one AdamW step (the loss within MESH_LOSS_RTOL, each leaf's update
+# within MESH_UPDATE_RTOL). One step of phase 16's lr (3e-5 at the first
+# warmup step) moves a bf16 weight by less than an ulp, so the step here
+# takes lr 1e-3 with no warmup
+HEADTP_CFG = dataclasses.replace(ARCHS["xlstm-1.3b"], num_layers=8)
+HEADTP_BATCH, HEADTP_PROMPT, HEADTP_STEPS = 2, 512, 4
+HEADTP_CONTEXT = 1024
+HEADTP_OPT = dict(learning_rate=1e-3, warmup_steps=1)
+HEADTP_SEED = 22
+
+
+def _head_tp_spec() -> dict:
+    return {"device": DEVICE, "cfg": HEADTP_CFG, "batch": HEADTP_BATCH,
+            "prompt": HEADTP_PROMPT, "steps": HEADTP_STEPS,
+            "context": HEADTP_CONTEXT, "layout": MESH_LAYOUT,
+            "seed": HEADTP_SEED, "opt": HEADTP_OPT}
+
+
+def _head_tp_inputs(model, sp: dict, shardings=None):
+    """(the prompts [B, S] int32 on the host, the train batch)."""
+    gen = torch.Generator().manual_seed(sp["seed"])
+    prompts = torch.randint(0, sp["cfg"].vocab_size,
+                            (sp["batch"], sp["prompt"]), generator=gen,
+                            dtype=torch.int32)
+    shape = ShapeConfig("head-tp", sp["prompt"], sp["batch"], "train")
+    return prompts, batch_for_step(model, shape, sp["seed"], 0,
+                                   device=sp["device"], shardings=shardings)
+
+
+def head_tp_rank(rank: int, sp: dict, ref_dir: str, out: str) -> None:
+    """One rank of phase 21 (under ``spawn_ranks``) under the head-tp
+    rules: (a) the prefill and the greedy decode steps on the rank's rows
+    and blocks, each timed on the host around a synchronised call, the
+    collectives of the prefill and of the last step by kind; (b) one train
+    step, its leaves gathered whole and held (rank 0) to the reference's
+    (``ref_dir``) by their update. The logits and tokens
+    (gathered) go to ``out`` (rank 0), each rank's numbers to
+    ``out``.rank (JSON)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import gather_full, local_shard
+    from repro_torch.launch.dryrun import profile_rules
+    from repro_torch.launch.shardings import batch_shardings
+    from repro_torch.models.blocks import rows_axes
+    from repro_torch.training.checkpoint import _paths
+    dev = sp["device"]
+    if dev == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank} finds no CUDA device")
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    global DEVICE
+    DEVICE = dev
+    mesh = make_mesh(MeshLayout(("data", "model"), sp["layout"]), dev)
+    cfg, b, ctx = sp["cfg"], sp["batch"], sp["context"]
+    model = build_model(cfg)
+    res = {"rank": rank}
+    with mesh_context(mesh, profile_rules("head-tp")):
+        ps = model.param_shardings(mesh)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            sp["seed"]), dev, mesh)
+        res["wq_block"] = list(params["blocks"][0]["mixer"]["wq"].shape)
+        rows = (rows_axes(mesh, b),)
+        bs = batch_shardings(model, ShapeConfig("head-tp", sp["prompt"], b,
+                                                "train"), mesh)
+        prompts, batch = _head_tp_inputs(model, sp, bs)
+        toks = local_shard(prompts, rows, mesh).to(dev)
+        with torch.no_grad():
+            _sync()
+            dist.barrier()
+            kernels.reset_launch_counts()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            logits, state = model.prefill(
+                params, {"tokens": toks}, ctx,
+                shape=ShapeConfig("head-tp", sp["prompt"], b, "prefill"))
+            _sync()
+            res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            res["prefill_collectives"] = collectives.counts()
+            seen, fed, step_ms = [logits], [], []
+            for _ in range(sp["steps"]):
+                tok = logits.argmax(-1).to(torch.int32)
+                fed.append(tok)
+                collectives.reset_counts()
+                _sync()
+                t0 = time.perf_counter()
+                logits, state = model.decode_step(params, state, tok, ctx,
+                                                  global_batch=b)
+                _sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                seen.append(logits)
+            res["step_ms"] = step_ms
+            res["step_collectives"] = collectives.counts()
+            res["serve_launches"] = kernels.launch_counts()
+            whole = [gather_full(x, rows, mesh).cpu() for x in seen]
+            tokens = [gather_full(x, rows, mesh).cpu() for x in fed]
+            del state, seen
+        init = tree_map(lambda t: t.to("cpu", copy=True), params)
+        opt = make_optimizer(OptimizerConfig(**sp["opt"]))
+        opt_state = opt.init(params, ps)
+        step = make_train_step(model, opt, remat_policy="none",
+                               batch_shardings=bs)
+        _sync()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        _sync()
+        res["train_ms"] = (time.perf_counter() - t0) * 1e3
+        res["train_launches"] = kernels.launch_counts()
+        res["train_collectives"] = collectives.counts()
+        res["loss"], res["grad_norm"] = m["loss"].item(), \
+            m["grad_norm"].item()
+        del opt_state, opt, step, batch
+    # one AdamW step moves a weight by ~lr * sign(g): a leaf's row check
+    # reads the signs of its near-zero gradient entries, so the leaves are
+    # held by their update alone
+    ref = dict(_ref_leaves(ref_dir, 1)) if rank == 0 else {}
+    worst_upd = (0.0, "")
+    for (key, leaf), (_, sh), (_, leaf0) in zip(_paths(params), _paths(ps),
+                                                _paths(init)):
+        full = gather_full(leaf, sh.spec, mesh)
+        full0 = gather_full(leaf0.to(dev), sh.spec, mesh)
+        if rank == 0:
+            want = ref.pop(key).to(full.device)
+            worst_upd = max(worst_upd, (update_err(full, want, full0), key))
+            del want
+        del full, full0
+    res["leaf_update_err"] = list(worst_upd)
+    res["peak_gib"] = _peak() / 2**30
+    if rank == 0:
+        torch.save({"logits": whole, "tokens": tokens}, out)
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+
+
+def head_tp_reference(sp: dict, ref_dir: str) -> tuple:
+    """One rank on the same weights: the train step, its leaves written to
+    ``ref_dir`` (a checkpoint); returns (the step's record, the launch
+    counts)."""
+    _reset_peak()
+    model, params = _init(sp["cfg"], sp["seed"], "head-tp-ref", "")
+    _, batch = _head_tp_inputs(model, sp)
+    opt = make_optimizer(OptimizerConfig(**sp["opt"]))
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt, remat_policy="none")
+    kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    params, opt_state, m = step(params, opt_state, batch)
+    _sync()
+    rec = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "train_ms": (time.perf_counter() - t0) * 1e3}
+    counts = kernels.launch_counts()
+    checkpoint.save(ref_dir, 1, params)
+    del params, opt_state, opt, step, model, batch
+    _free()
+    return rec, counts
+
+
+def head_tp_serve_reference(sp: dict, tokens) -> tuple:
+    """One rank: the prompts' prefill, then the decode teacher-forced with
+    the mesh's tokens. Returns (the logits of prefill and of each step, on
+    the host, the launch counts, the prefill's wall ms)."""
+    model, params = _init(sp["cfg"], sp["seed"], "head-tp-ref", "")
+    prompts, _ = _head_tp_inputs(model, sp)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        _sync()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": prompts.to(DEVICE)},
+                                      sp["context"])
+        _sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        seen = [logits.cpu()]
+        for tok in tokens:
+            logits, state = model.decode_step(params, state, tok.to(DEVICE),
+                                              sp["context"])
+            seen.append(logits.cpu())
+    counts = kernels.launch_counts()
+    del params, state, model
+    _free()
+    return seen, counts, prefill_ms
+
+
+def phase_head_tp():
+    """Phase 21: the one-rank train step, the mesh's (a) and (b) on
+    ``MESH_WORLD`` ranks (``head_tp_rank``), then the one-rank serving
+    reference teacher-forced with the mesh's tokens; the checks. Returns
+    the launch counts of every rank's runs and of the references."""
+    import tempfile
+    card = _card()
+    sp = _head_tp_spec()
+    cfg = sp["cfg"]
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref_step, c = head_tp_reference(sp, tmp)
+        counts.update(c)
+        log(f"[head-tp] one-rank train step took "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "head_tp.pt")
+        spawn_ranks(head_tp_rank, MESH_WORLD, sp, tmp, out)
+        recs = []
+        for r in range(MESH_WORLD):
+            with open(f"{out}.{r}") as f:
+                recs.append(json.load(f))
+        mesh_run = torch.load(out)
+        log(f"[head-tp] (a)-(b) on {MESH_WORLD} ranks took "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    ref, c, ref_ms = head_tp_serve_reference(sp, mesh_run["tokens"])
+    counts.update(c)
+    log(f"[head-tp] one-rank serving reference took "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    r0 = recs[0]
+    tol = ROW_RTOL[dtype_of(cfg)]
+    errs = [row_err(got, want) for got, want in zip(mesh_run["logits"], ref)]
+    same = [bool(torch.equal(tok, want.argmax(-1).to(tok.dtype)))
+            for tok, want in zip(mesh_run["tokens"], ref)]
+    log(f"[head-tp] (a) {cfg.name} {cfg.num_layers} layers, heads "
+        f"{cfg.num_heads} x {cfg.resolved_head_dim} (a rank's wq block "
+        f"{r0['wq_block']}), on a {MESH_LAYOUT} (data, model) mesh under the "
+        f"head-tp rules: prefill {sp['batch']} x {sp['prompt']} tokens, "
+        f"{sp['steps']} greedy decode steps; logits row_err against one "
+        f"rank: prefill {errs[0]:.3g}, decode steps worst "
+        f"{max(errs[1:]):.3g} (limit {tol}); greedy tokens equal to one "
+        f"rank's at {sum(same)} of {len(same)} steps")
+    if not all(np.isfinite(e) and e <= tol for e in errs):
+        fail(f"head-tp: logits off one rank's: row_err {errs} > {tol}")
+    if not all(same):
+        fail(f"head-tp: greedy tokens differ from one rank's at steps "
+             f"{[i for i, x in enumerate(same) if not x]}")
+    le = abs(r0["loss"] - ref_step["loss"]) / abs(ref_step["loss"])
+    uerr, ukey = r0["leaf_update_err"]
+    log(f"[head-tp] (b) one AdamW step (lr {sp['opt']['learning_rate']}) on "
+        f"{sp['batch']} x {sp['prompt']} tokens: loss {r0['loss']:.5f} vs "
+        f"one rank's {ref_step['loss']:.5f} (rel err {le:.3g}, limit "
+        f"{MESH_LOSS_RTOL}); grad norm {r0['grad_norm']:.5f} vs "
+        f"{ref_step['grad_norm']:.5f}; worst leaf update error {uerr:.3g} "
+        f"at {ukey} (limit {MESH_UPDATE_RTOL}; no update reads 1); rank 0 "
+        f"step {r0['train_ms']:.1f} ms wall (gloo), one rank "
+        f"{ref_step['train_ms']:.1f} ms")
+    if not (np.isfinite(r0["loss"]) and le <= MESH_LOSS_RTOL):
+        fail(f"head-tp: loss {r0['loss']} off one rank's {ref_step['loss']}")
+    if not uerr <= MESH_UPDATE_RTOL:
+        fail(f"head-tp: leaf {ukey}'s update off one rank's: {uerr} > "
+             f"{MESH_UPDATE_RTOL}")
+    log(f"[head-tp] (a) rank 0: prefill {r0['prefill_ms']:.1f} ms wall (one "
+        f"rank {ref_ms:.1f} ms), decode step median "
+        f"{np.median(r0['step_ms']):.1f} ms wall (gloo)")
+    for what, k in (("prefill", "prefill_collectives"),
+                    ("last decode step", "step_collectives"),
+                    ("train step", "train_collectives")):
+        coll = r0[k]
+        log(f"[head-tp] collectives of rank 0's {what} (calls, MB): "
+            + ", ".join(f"{n} {v['calls']} {v['bytes'] / 1e6:.2f}"
+                        for n, v in sorted(coll.items()))
+            + f"; {sum(v['bytes'] for v in coll.values()) / 1e6:.2f} MB in "
+              f"all")
+    log(f"[head-tp] peak memory per rank (GiB): " + ", ".join(
+        f"{rec['peak_gib']:.2f}" for rec in recs)
+        + "; ssd_scan launches per rank (serve/train): " + ", ".join(
+            f"{rec['serve_launches'].get('ssd_scan', 0)}/"
+            f"{rec['train_launches'].get('ssd_scan', 0)}" for rec in recs))
+    for rec in recs:
+        counts.update(rec["serve_launches"])
+        counts.update(rec["train_launches"])
+        if DEVICE == "cuda" and not (rec["serve_launches"].get("ssd_scan")
+                                     and rec["train_launches"].get(
+                                         "ssd_scan")):
+            fail(f"head-tp: ssd_scan never launched on rank {rec['rank']}")
+    return counts
+
+
 def _card() -> str:
     if DEVICE != "cuda":
         return "the CPU"
@@ -4400,6 +4768,8 @@ def main() -> None:
     launches.update(phase_mesh_moe_ssm())
     launches.update(phase_mesh_encdec_vlm())
     launches.update(phase_mesh_serve(shape_rows))
+    launches.update(phase_examples())
+    launches.update(phase_head_tp())
     log(f"[launches] every serving, training and CLI phase: "
         f"{dict(launches)}")
     rows = []

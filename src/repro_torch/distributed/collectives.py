@@ -19,6 +19,12 @@ Each is a ``torch.autograd.Function`` over a process group of a
     (forward), its gradient reduce-scattered back (backward): for a leaf
     whose stored blocks are not the columns a rank computes with (Mamba's
     ``in_proj``, whose x and z halves each split over the heads);
+  * ``gather_region``: an activation's blocks all-gathered whole
+    (forward), its gradient reduce-scattered back (backward): the q/k of a
+    contraction over a split head_dim;
+  * ``scatter_region``: partial sums reduce-scattered to the rank's block
+    (forward), the gradient all-gathered (backward): sLSTM's recurrent
+    product over a split head_dim;
   * ``max_over``, ``sum_over`` and ``gather_over``, outside autograd (the
     cross-entropy's max; the mask count, squared norms, gradient and
     optimizer sums; the MoE's per-expert counts of each data rank).
@@ -191,6 +197,18 @@ class _Gather(torch.autograd.Function):
         return g, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
+        return reduce_scatter_dim(x, group, dim, kind + "_reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_dim(g, ctx.group, ctx.dim,
+                               ctx.kind + "_all_gather"), None, None, None)
+
+
 class _CopyToRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -253,6 +271,30 @@ def reduce_from_region(x: torch.Tensor, mesh, axes: Sequence[str],
                        kind: str = "tp_all_reduce"):
     group = _axes_group(mesh, axes)
     return x if group is None else _ReduceFromRegion.apply(x, group, kind)
+
+
+def gather_region(x: torch.Tensor, mesh, axes: Sequence[str], dim: int,
+                  kind: str) -> torch.Tensor:
+    """``x``, the rank's block of dimension ``dim`` over ``axes``, gathered
+    whole (contiguous; ``x`` itself where they are all of size 1).
+    Backward: the reduce-scatter, each rank's gradient of the whole tensor
+    summed into the blocks."""
+    group = _axes_group(mesh, axes)
+    if group is None:
+        return x
+    dim = dim % x.dim()
+    return _Gather.apply(x, [(dim, group)], kind).contiguous()
+
+
+def scatter_region(x: torch.Tensor, mesh, axes: Sequence[str], dim: int,
+                   kind: str) -> torch.Tensor:
+    """The sum of the partial sums ``x`` over ``axes``, this rank's block of
+    dimension ``dim`` (``x`` itself where they are all of size 1).
+    Backward: the all-gather."""
+    group = _axes_group(mesh, axes)
+    if group is None:
+        return x
+    return _Scatter.apply(x, group, dim % x.dim(), kind)
 
 
 def sum_over(t: torch.Tensor, mesh, axes: Sequence[str],

@@ -51,10 +51,12 @@ writes (each tensor argument and result once a call). ``collectives``:
 reference's extras, ``alpha``, ``m``, ``cycle_bytes_per_device`` and
 ``resident_bytes_per_device`` (and ``cross_kv_host_bytes_per_device``).
 
-The ``head-tp`` profile splits head_dim, which the port's blocks do not
-take: it raises ``NotImplementedError`` (ROADMAP queue 1 item 9e) and
-``main`` prints its cells as ``WAIT``, counted apart from ``OK`` and
-``FAIL``. ``main`` exits 0 when no cell fails.
+``--profile``: the reference's rule sets (``profile_rules``): ``train``
+(FSDP x TP), ``serving`` (TP-only dense weights), ``train-ef`` (the
+experts' d_ff FSDP-split) and ``head-tp`` (the serving rules with head_dim
+split over "model" and the heads whole, the reference's variant for
+xlstm's 4 heads: the blocks gather q and k over head_dim where they
+contract over it). ``main`` exits 0 when no cell fails.
 """
 from __future__ import annotations
 
@@ -96,7 +98,6 @@ from repro_torch.training import (
 
 ARTIFACT_DIR = os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "artifacts", "dryrun_torch")
-WAITS = "ROADMAP queue 1 item 9e (the head-tp profile)"
 
 
 def pick_optimizer(cfg) -> str:
@@ -133,7 +134,9 @@ def fake_world(size: int):
         dist.destroy_process_group()
 
 
-def _rules(profile: str) -> ShardingRules:
+def profile_rules(profile: str) -> ShardingRules:
+    """The rule set of a dry-run ``--profile`` (the reference's
+    ``lower_cell``)."""
     if profile == "serving":
         return SERVING_RULES
     if profile == "train-ef":
@@ -141,9 +144,10 @@ def _rules(profile: str) -> ShardingRules:
         # d_model
         return ShardingRules.make(expert_ff=("pod", "data"), expert_mlp=())
     if profile == "head-tp":
-        raise NotImplementedError(
-            "the head-tp profile splits head_dim over the model axis; the "
-            f"port's blocks split heads, not head_dim: {WAITS}")
+        # the reference's variant (xlstm): 4 heads do not split over a
+        # model axis of 16, so head_dim (512) splits over it instead
+        return ShardingRules.make(profile="serving", head_dim=("model",),
+                                  heads=())
     return DEFAULT_RULES
 
 
@@ -296,12 +300,11 @@ def lower_cell(arch, shape, mesh, *, remap_tier: float = 0.0,
     this process joined), on fake tensors: a train step, a prefill, or a
     decode step (at ``remap_tier``, the MIRAGE tier). ``arch``: a config
     or its name; ``shape``: a ``ShapeConfig`` or its name. Returns (its
-    record without the cell's names, model, shape). The ``head-tp``
-    profile raises ``NotImplementedError`` (``WAITS``)."""
+    record without the cell's names, model, shape)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     shape = SHAPES_BY_NAME[shape] if isinstance(shape, str) else shape
-    rules = _rules(profile)
+    rules = profile_rules(profile)
     model = build_model(cfg)
     train = shape.kind == "train"
     if train and remap_tier:
@@ -445,7 +448,7 @@ def main(argv=None) -> int:
 
     archs = [args.arch] if args.arch else list(ARCHS)
     meshes = [args.mesh] if args.mesh else ["single_pod", "multi_pod"]
-    ok = fail = wait = 0
+    ok = fail = 0
     t_all = time.perf_counter()
     for mesh_name in meshes:
         for arch in archs:
@@ -465,11 +468,6 @@ def main(argv=None) -> int:
                         microbatches=args.microbatches,
                         remat_policy=args.remat, profile=args.profile,
                         out_dir=args.out_dir)
-                except NotImplementedError as e:
-                    wait += 1
-                    print(f"WAIT  {mesh_name:10s} {arch:24s} {shape_name}: "
-                          f"{e}")
-                    continue
                 except Exception as e:  # noqa: BLE001 - a cell's failure
                     fail += 1
                     print(f"FAIL  {mesh_name:10s} {arch:24s} {shape_name}: "
@@ -486,7 +484,7 @@ def main(argv=None) -> int:
                       f"coll {rec['collectives']['total_bytes'] / 2**20:9.1f}"
                       f" MiB ({time.perf_counter() - t0:.1f} s)")
                 ok += 1
-    print(f"\ndry-run complete: {ok} ok, {wait} wait, {fail} failed "
+    print(f"\ndry-run complete: {ok} ok, {fail} failed "
           f"({time.perf_counter() - t_all:.1f} s)")
     return 0 if fail == 0 else 1
 

@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.distributed.collectives import (
     all_gather_dim, all_to_all_dim, copy_to_region, fsdp_gather, gather_over,
-    reduce_from_region, sum_over, tp_gather,
+    gather_region, reduce_from_region, scatter_region, sum_over, tp_gather,
 )
 from repro_torch.distributed.sharding import (
     axis_sizes, batch_axis_names, get_mesh, get_rules, mesh_group,
@@ -99,6 +99,22 @@ class Attention:
             _einsum("...d,dhk->...hk", x, p[w]).to(x.dtype).contiguous()
             for w in ("wq", "wk", "wv"))
 
+    @staticmethod
+    def _whole(w, sp, name: str, a, mesh, hd):
+        """The projection of rows ``a`` by leaf ``name`` (wq, wk or wv),
+        every head with its whole head_dim, from the rank's block under a
+        head_dim split over ``hd`` (``_head_dim_axes``): gathered over
+        ``hd`` along the dimension the leaf's spec splits (head_dim, or the
+        KV heads where the axes divide them); a leaf kept whole enters the
+        region through a *copy to region*. The gather's backward
+        reduce-scatters, so the rank's block gets the whole gradient."""
+        dims = [d for d in (1, 2) if spec_axes(sp[name], d)]
+        wn = w[name] if dims else copy_to_region(w[name], mesh, hd)
+        t = _einsum("...d,dhk->...hk", a, wn).to(a.dtype)
+        if dims:
+            t = gather_region(t, mesh, hd, t.dim() - 3 + dims[0], "head_dim")
+        return t.contiguous()
+
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
         """Prefill over a full sequence. ctx: dict with 'positions' [B, S]
         (= arange, the positions the flash kernel assumes), an optional
@@ -121,9 +137,36 @@ class Attention:
         those axes) enter through a *copy to region* too, so that their
         gradients are the sums over the heads' axes: the encoder's leaves,
         which the decoder reaches only through cross-attention, get the
-        whole gradient. With no mesh every collective is the identity."""
+        whole gradient. With no mesh every collective is the identity.
+
+        Where the rules split head_dim instead (``_head_dim_axes``: the
+        ``head-tp`` profile), every head runs on every rank: the rank's
+        head_dim blocks of q, k and v are gathered whole over those axes
+        (``_whole``), the kernel runs on them unchanged, and ``wo`` is
+        row-parallel over head_dim on the rank's block of the output. The
+        cache is then every KV head, whole."""
         mesh = ctx.get("mesh")
         w, sp = _gathered(self, p, cfg, mesh)
+        hd = _head_dim_axes(sp)
+        if hd:
+            x_in = copy_to_region(x, mesh, hd)
+            src = copy_to_region(ctx["enc_out"], mesh, hd) if self.cross \
+                else x_in
+            q, k, v = (self._whole(w, sp, n, a, mesh, hd) for n, a in
+                       (("wq", x_in), ("wk", src), ("wv", src)))
+            if self.cross:
+                out = flash_attention(q, k, v, causal=False)
+            else:
+                positions = ctx["positions"]
+                q = rope(q, positions, cfg.rope_theta)
+                k = rope(k, positions, cfg.rope_theta)
+                out = flash_attention(
+                    q, k, v, causal=not ctx.get("bidirectional", False),
+                    window=cfg.sliding_window)
+            y = reduce_from_region(
+                _einsum("bshk,hkd->bsd", _own_block(out, w, mesh, hd),
+                        w["wo"]), mesh, hd)
+            return y.to(x.dtype), {"k": k, "v": v}
         axes = _attn_heads_axes(sp)
         if axes and not spec_axes(sp["wk"], 1):
             heads = _kv_heads_read(cfg, w["wq"].shape[1],
@@ -232,26 +275,41 @@ class Attention:
         [B, Ssrc, Hkv, hd] (every KV head) under ``shared["cross_pos"]``/
         ``["cross_valid"]`` [B, Ssrc], unmasked otherwise; it writes
         nothing. Over a mesh, heads-parallel: the rank's query heads
-        against the KV heads they read."""
+        against the KV heads they read.
+
+        Under a head_dim split (``_head_dim_axes``) the rank's blocks of q
+        and the new K/V row are gathered whole (``_whole``), the attention
+        runs on every head, and ``wo`` is row-parallel over head_dim."""
         mesh = get_mesh()
         w, sp = _gathered(self, p, cfg, mesh)
+        hd = _head_dim_axes(sp)
         axes = _attn_heads_axes(sp)
         pos = shared["pos"]
         if self.cross:
-            q = _einsum("bd,dhk->bhk", x, w["wq"]).to(x.dtype)
+            if hd:
+                q = self._whole(w, sp, "wq", x, mesh, hd)
+            else:
+                q = _einsum("bd,dhk->bhk", x, w["wq"]).to(x.dtype)
             kv = _kv_index(cfg, w, sp, mesh)
             out = decode_attention(q, state["k"][:, :, kv],
                                    state["v"][:, :, kv], pos,
                                    shared["cross_pos"], shared["cross_valid"],
                                    causal=False)
-            y = reduce_from_region(_einsum("bhk,hkd->bd", out, w["wo"]),
-                                   mesh, axes, "decode_tp_all_reduce")
+            y = reduce_from_region(
+                _einsum("bhk,hkd->bd", _own_block(out, w, mesh, hd),
+                        w["wo"]), mesh, axes or hd, "decode_tp_all_reduce")
             return y.to(x.dtype), {}
-        q, k_new, v_new = self._qkv(w, x, cfg)
-        q = _all_heads(rope(q, pos, cfg.rope_theta), mesh, axes)
-        kv_w = spec_axes(sp["wk"], 1)
-        k_new = _all_heads(rope(k_new, pos, cfg.rope_theta), mesh, kv_w)
-        v_new = _all_heads(v_new, mesh, kv_w)
+        if hd:
+            q, k_new, v_new = (self._whole(w, sp, n, x, mesh, hd)
+                               for n in ("wq", "wk", "wv"))
+            q = rope(q, pos, cfg.rope_theta)
+            k_new = rope(k_new, pos, cfg.rope_theta)
+        else:
+            q, k_new, v_new = self._qkv(w, x, cfg)
+            q = _all_heads(rope(q, pos, cfg.rope_theta), mesh, axes)
+            kv_w = spec_axes(sp["wk"], 1)
+            k_new = _all_heads(rope(k_new, pos, cfg.rope_theta), mesh, kv_w)
+            v_new = _all_heads(v_new, mesh, kv_w)
         kv_axes, s0 = _mesh_decode_layout(mesh, x, state, shared)
         s_l = state["k"].shape[1]
         slot = shared["slot"].long() - s0
@@ -275,8 +333,9 @@ class Attention:
         hq = w["wq"].shape[1]
         h0 = mesh_index(mesh, axes) * hq
         y = reduce_from_region(
-            _einsum("bhk,hkd->bd", out[:, h0:h0 + hq], w["wo"]), mesh, axes,
-            "decode_tp_all_reduce")
+            _einsum("bhk,hkd->bd", _own_block(out[:, h0:h0 + hq], w, mesh,
+                                              hd), w["wo"]),
+            mesh, axes or hd, "decode_tp_all_reduce")
         return y.to(x.dtype), {}
 
 
@@ -302,10 +361,41 @@ def _gathered(block, p, cfg: ModelConfig, mesh):
     return {n: fsdp_gather(p[n], sp[n], mesh) for n in sp}, sp
 
 
+def _head_dim_axes(sp) -> Tuple[str, ...]:
+    """The axes that split an attention block's head_dim (the ``head-tp``
+    profile: ``wq`` and ``wo`` split head_dim, the heads stay whole; ``wk``
+    and ``wv`` split the KV heads over them where they divide, head_dim
+    otherwise, or stay whole); () where head_dim stays whole."""
+    hd = spec_axes(sp["wq"], 2)
+    if not hd and not spec_axes(sp["wo"], 1):
+        return ()
+    kv = {spec_axes(sp[n], d) for n in ("wk", "wv") for d in (1, 2)} - {()}
+    if (spec_axes(sp["wq"], 1) or spec_axes(sp["wo"], 0)
+            or spec_axes(sp["wo"], 1) != hd or kv - {hd}
+            or spec_axes(sp["wk"], 1) != spec_axes(sp["wv"], 1)):
+        raise ValueError(f"a head_dim split over {hd} takes whole heads, wo "
+                         f"split alike and wk/wv split over it or whole: "
+                         f"{sp}")
+    return hd
+
+
+def _own_block(out: torch.Tensor, w, mesh, hd) -> torch.Tensor:
+    """out [..., H, hd] cut to the rank's head_dim block of ``wo`` [H,
+    hd_local, d] under a head_dim split over ``hd`` (``out`` itself where
+    there is none)."""
+    if not hd:
+        return out
+    n = w["wo"].shape[1]
+    return out.narrow(-1, mesh_index(mesh, hd) * n, n)
+
+
 def _attn_heads_axes(sp) -> Tuple[str, ...]:
     """The axes that split an attention block's query heads; its KV heads
     split over the same axes or stay whole, and ``wo``'s heads follow the
-    query heads'."""
+    query heads'. () under a head_dim split (``_head_dim_axes``): every
+    rank computes every head, and its caches hold them all."""
+    if _head_dim_axes(sp):
+        return ()
     axes = spec_axes(sp["wq"], 1)
     kv_axes = spec_axes(sp["wk"], 1)
     if (kv_axes and kv_axes != axes) or spec_axes(sp["wo"], 0) != axes:
@@ -427,6 +517,18 @@ def _heads_axes(sp, dims: Dict[str, int]) -> Tuple[str, ...]:
     if len(axes) > 1:
         raise ValueError(f"the heads of a block split unevenly: {split}")
     return axes.pop()
+
+
+def _heads_or_head_dim(sp, heads: Dict[str, int], head_dim: Dict[str, int]
+                       ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(the axes that split a block's heads, those that split its
+    head_dim: ``_heads_axes`` of each leaf's dims in ``heads`` and in
+    ``head_dim``); at most one of the two splits."""
+    axes, hd = _heads_axes(sp, heads), _heads_axes(sp, head_dim)
+    if axes and hd:
+        raise ValueError(f"a block splits its heads over {axes} and its "
+                         f"head_dim over {hd}")
+    return axes, hd
 
 
 def _kv_heads_read(cfg: ModelConfig, hq_local: int, block: int):
@@ -893,10 +995,21 @@ class Mamba:
         return reduce_from_region(_einsum("...e,ed->...d", y, p["out_proj"]),
                                   mesh, axes).to(x.dtype)
 
-    # each leaf's dimension that the heads split, directly ("heads") or
-    # through their channels ("ssm_inner")
-    HEAD_DIMS = {"conv_w": 1, "dt_proj": 1, "dt_bias": 0, "a_log": 0,
-                 "d_skip": 0, "out_proj": 0}
+    # each leaf's dimension that the heads split through their channels
+    # ("ssm_inner"), and directly ("heads")
+    CHANNEL_DIMS = {"conv_w": 1, "out_proj": 0}
+    HEAD_DIMS = {"dt_proj": 1, "dt_bias": 0, "a_log": 0, "d_skip": 0}
+
+    def _axes(self, sp) -> Tuple[str, ...]:
+        """The axes that split the heads, through their channels; the
+        per-head leaves split over them too or, where the rules keep
+        "heads" whole (``head-tp``), stay whole."""
+        axes = _heads_axes(sp, self.CHANNEL_DIMS)
+        heads = _heads_axes(sp, self.HEAD_DIMS)
+        if heads and heads != axes:
+            raise ValueError(f"Mamba's heads split over {heads}, its "
+                             f"channels over {axes}")
+        return axes
 
     def _mesh_weights(self, p, cfg, mesh):
         """(weights, axes) of ``fwd_seq`` on ``mesh``: every leaf
@@ -906,11 +1019,19 @@ class Mamba:
         of its 2 d_in columns, which do not hold a rank's heads (the x half
         and the z half split at d_in): it is gathered whole over its
         tensor-parallel axes (``tp_gather``) and the rank takes its heads'
-        columns of both halves. With no mesh: ``p``, ()."""
+        columns of both halves. Per-head leaves kept whole while the
+        channels split (``_axes``) enter the region through a *copy to
+        region* and the rank takes its heads of them. With no mesh: ``p``,
+        ()."""
         w, sp = _gathered(self, p, cfg, mesh)
-        axes = _heads_axes(sp, self.HEAD_DIMS)
+        axes = self._axes(sp)
         if mesh is None:
             return w, axes
+        if axes and not _heads_axes(sp, self.HEAD_DIMS):
+            h = w["out_proj"].shape[0] // self.HEAD_DIM
+            h0 = mesh_index(mesh, axes) * h
+            w = dict(w, **{n: copy_to_region(w[n], mesh, axes).narrow(
+                dim, h0, h) for n, dim in self.HEAD_DIMS.items()})
         full = tp_gather(w["in_proj"], sp["in_proj"], mesh, 1)
         if axes:
             d_in = full.shape[1] // 2
@@ -987,8 +1108,8 @@ class Mamba:
         """``fwd_seq``'s final state is the decode state; under a mesh
         (the rank's heads) ``ssm`` is gathered over the heads' axes to
         every head, ``conv`` keeps the rank's channels."""
-        axes = _heads_axes(_specs(self, cfg, mesh), self.HEAD_DIMS) \
-            if mesh is not None else ()
+        axes = self._axes(_specs(self, cfg, mesh)) if mesh is not None \
+            else ()
         ssm = cache["ssm"]
         if axes:
             ssm = all_gather_dim(ssm, mesh_group(mesh, axes), ssm.dim() - 3,
@@ -1052,6 +1173,38 @@ class MLSTM:
         return num / torch.clamp(den.abs(), min=1.0)
 
     HEAD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "w_if": 2, "b_if": 1, "wo": 0}
+    # each leaf's head_dim (the ``head-tp`` profile splits it over "model")
+    HD_DIMS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1}
+
+    def _axes(self, sp) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        return _heads_or_head_dim(sp, self.HEAD_DIMS, self.HD_DIMS)
+
+    @staticmethod
+    def _own_c(c: torch.Tensor, mesh, hd) -> torch.Tensor:
+        """The rank's columns of the whole state c [..., hd, hd + 1] under a
+        head_dim split over ``hd``: its block of the value columns and the
+        normalizer column."""
+        if not hd:
+            return c
+        n = math.prod(axis_sizes(mesh)[ax] for ax in hd)
+        v = (c.shape[-1] - 1) // n
+        v0 = mesh_index(mesh, hd) * v
+        return torch.cat([c[..., v0:v0 + v], c[..., -1:]], dim=-1)
+
+    @staticmethod
+    def _whole_c(c: torch.Tensor, mesh, hd) -> torch.Tensor:
+        """The whole state [..., hd, hd + 1] from each rank's columns [...,
+        hd, hd_local + 1] (``_own_c``): the value blocks in rank order, then
+        the normalizer column, which every rank computes alike (rank 0's
+        is kept)."""
+        if not hd:
+            return c
+        v = c.shape[-1]
+        g = all_gather_dim(c, mesh_group(mesh, hd), c.dim() - 1,
+                           "state_head_dim_all_gather")
+        g = g.reshape(g.shape[:-1] + (-1, v))
+        return torch.cat([g[..., :v - 1].flatten(-2), g[..., 0, v - 1:]],
+                         dim=-1).contiguous()
 
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
         """On CUDA the recurrence is the hand-written ``ssd_scan`` kernel;
@@ -1061,47 +1214,65 @@ class MLSTM:
         ``ctx["mesh"]``: heads-parallel on the rank's blocks
         (``_gathered``): q/k/v and the gates column-parallel over the
         heads' axes, the scan on the rank's heads, ``wo`` row-parallel
-        with its partial sums reduced over them (no norm crosses heads)."""
+        with its partial sums reduced over them (no norm crosses heads).
+        Where head_dim splits instead (``head-tp``): q and k, which the
+        scan contracts over head_dim, are gathered whole (their backward
+        reduce-scatters); the gates (``w_if``, ``b_if`` whole) are computed
+        before the region and enter it through a *copy to region*; the scan
+        runs on every head with the rank's value columns plus its own
+        normalizer column (dv = hd_local + 1), so its final state is the
+        rank's columns (``_own_c``); ``wo`` is row-parallel over head_dim."""
         mesh = (ctx or {}).get("mesh")
         w, sp = _gathered(self, p, cfg, mesh)
-        axes = _heads_axes(sp, self.HEAD_DIMS)
-        x_in = copy_to_region(x, mesh, axes)
+        axes, hd = self._axes(sp)
+        region = axes or hd
+        x_in = copy_to_region(x, mesh, region)
         q, k, v = self._qkv(w, x_in, cfg)
-        i_gate, log_f = self._gates(w, x_in)           # [b,t,h]
+        i_gate, log_f = self._gates(w, x_in if axes else x)   # [b,t,h]
+        if hd:
+            i_gate, log_f = (copy_to_region(g, mesh, hd)
+                             for g in (i_gate, log_f))
+            q, k = (gather_region(t, mesh, hd, 3, "head_dim") for t in (q, k))
         v_aug = self._v_aug(v, i_gate)
         y, final = ssd_scan(q.contiguous(), k.contiguous(),
                             v_aug.contiguous(), log_f.contiguous(),
                             chunk=cfg.ssm.chunk_size)
         hh = self._read(y).to(x.dtype)
         out = reduce_from_region(_einsum("bthk,hkd->btd", hh, w["wo"]),
-                                 mesh, axes)
+                                 mesh, region)
         return out.to(x.dtype), {"c": final}
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
         """One token. Under a mesh, on the rank's rows and blocks,
         heads-parallel as ``fwd_seq``: the state's ``c`` holds every head
         (``init_state``'s layout); the rank updates its heads', which are
-        gathered back over the heads' axes."""
+        gathered back over the heads' axes. Under a head_dim split the
+        state is whole too: the rank updates its columns (``_own_c``, q and
+        k gathered whole), which are gathered back (``_whole_c``)."""
         mesh = get_mesh()
         w, sp = _gathered(self, p, cfg, mesh)
-        axes = _heads_axes(sp, self.HEAD_DIMS)
+        axes, hd = self._axes(sp)
         q, k, v = self._qkv(w, x, cfg)
         h0 = mesh_index(mesh, axes) * q.shape[1]
         i_gate, log_f = self._gates(w, x)              # [b,h]
-        y, new_c = ssd_decode_step(q, k, self._v_aug(v, i_gate), log_f,
-                                   state["c"][:, h0:h0 + q.shape[1]])
+        if hd:
+            q, k = (gather_region(t, mesh, hd, 2, "head_dim") for t in (q, k))
+        c = self._own_c(state["c"][:, h0:h0 + q.shape[1]], mesh, hd)
+        y, new_c = ssd_decode_step(q, k, self._v_aug(v, i_gate), log_f, c)
         hh = self._read(y).to(x.dtype)
         out = reduce_from_region(_einsum("bhk,hkd->bd", hh, w["wo"]), mesh,
-                                 axes, "decode_tp_all_reduce")
-        return out.to(x.dtype), {"c": _all_heads(new_c, mesh, axes)}
+                                 axes or hd, "decode_tp_all_reduce")
+        return out.to(x.dtype), {"c": _all_heads(
+            self._whole_c(new_c, mesh, hd), mesh, axes)}
 
     def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int,
                            mesh=None, batch: int = 0):
         """``fwd_seq``'s final state is the decode state; under a mesh
-        (the rank's heads) ``c`` is gathered over the heads' axes."""
-        axes = _heads_axes(_specs(self, cfg, mesh), self.HEAD_DIMS) \
-            if mesh is not None else ()
-        c = cache["c"]
+        (the rank's heads) ``c`` is gathered over the heads' axes, or
+        (the rank's columns) over head_dim's (``_whole_c``)."""
+        axes, hd = self._axes(_specs(self, cfg, mesh)) if mesh is not None \
+            else ((), ())
+        c = self._whole_c(cache["c"], mesh, hd)
         if axes:
             c = all_gather_dim(c, mesh_group(mesh, axes), c.dim() - 3,
                                "cache_heads_all_gather").contiguous()
@@ -1137,9 +1308,14 @@ class SLSTM:
         return {"c": z(), "n": z(), "h": z()}
 
     @staticmethod
-    def _cell(p, wx, state):
-        """wx [B,4,H,hd] pre-activations; state {c,n,h}."""
+    def _cell(p, wx, state, rec_sum=None):
+        """wx [B,4,H,hd] pre-activations; state {c,n,h}. ``rec_sum``: the
+        sum of the recurrent product's partial sums over a head_dim split
+        (``r`` splits its input head_dim: each rank's h block gives a
+        partial sum of every output, of which it keeps its block)."""
         rec = _einsum("bhk,hgkl->bghl", state["h"], p["r"])
+        if rec_sum is not None:
+            rec = rec_sum(rec)
         za = wx + rec + p["b"][None]
         z = torch.tanh(za[:, 0])
         i = torch.sigmoid(za[:, 1])
@@ -1153,6 +1329,18 @@ class SLSTM:
     TIME_CHUNK = 64
 
     HEAD_DIMS = {"w": 2, "r": 0, "b": 1, "wo": 0}
+    # each leaf's head_dim (``r``'s input one; ``head-tp`` splits them)
+    HD_DIMS = {"w": 3, "r": 2, "b": 2, "wo": 1}
+
+    def _axes(self, sp, mesh):
+        """(the axes that split the heads, those that split head_dim, the
+        cell's ``rec_sum`` under the latter: the reduce-scatter of the
+        recurrent product's partial sums over them, each step)."""
+        axes, hd = _heads_or_head_dim(sp, self.HEAD_DIMS, self.HD_DIMS)
+        if not hd:
+            return axes, hd, None
+        return axes, hd, lambda rec: scatter_region(rec, mesh, hd, 3,
+                                                    "slstm_rec")
 
     def fwd_seq(self, p, x, ctx, cfg: ModelConfig):
         """The time loop; under autograd each chunk of ``TIME_CHUNK`` steps
@@ -1163,12 +1351,17 @@ class SLSTM:
         ``ctx["mesh"]``: heads-parallel on the rank's blocks (``_gathered``;
         the recurrence is block-diagonal over the heads): w, r and b of the
         rank's heads, ``wo`` row-parallel with its partial sums reduced
-        over the heads' axes."""
+        over the heads' axes. Where head_dim splits instead (``head-tp``):
+        the rank runs the cell on its head_dim block of every head (w's and
+        b's columns, r's input rows), the recurrent product's partial sums
+        reduce-scattered over those axes each step (``_axes``); its final
+        state is the rank's block, ``wo`` row-parallel over head_dim."""
         b, t, _ = x.shape
         mesh = (ctx or {}).get("mesh")
         p, sp = _gathered(self, p, cfg, mesh)
-        axes = _heads_axes(sp, self.HEAD_DIMS)
-        wx = _einsum("btd,dghk->btghk", copy_to_region(x, mesh, axes),
+        axes, hd, rec_sum = self._axes(sp, mesh)
+        region = axes or hd
+        wx = _einsum("btd,dghk->btghk", copy_to_region(x, mesh, region),
                      p["w"])                           # [b,t,4,h,hd]
         zeros = torch.zeros((b,) + p["w"].shape[2:],
                             dtype=torch.float32, device=x.device)
@@ -1178,7 +1371,7 @@ class SLSTM:
             st = {"c": c, "n": n, "h": h}
             hs = []
             for i in range(wxc.shape[1]):
-                st = self._cell(p, wxc[:, i], st)
+                st = self._cell(p, wxc[:, i], st, rec_sum)
                 hs.append(st["h"])
             return st["c"], st["n"], st["h"], torch.stack(hs, dim=1)
 
@@ -1192,26 +1385,48 @@ class SLSTM:
             hs.append(h_c)
         hs = torch.cat(hs, dim=1).to(x.dtype)          # [b,t,h,hd]
         out = reduce_from_region(_einsum("bthk,hkd->btd", hs, p["wo"]),
-                                 mesh, axes)
+                                 mesh, region)
         return out.to(x.dtype), dict(zip(("c", "n", "h"), state))
 
     def fwd_dec(self, p, x, state, shared, cfg: ModelConfig):
         """One token. Under a mesh, on the rank's rows and blocks,
         heads-parallel as ``fwd_seq``: the state holds the rank's heads
         (``init_state``'s layout splits them as the weights'); ``wo``
-        row-parallel."""
+        row-parallel. Under a head_dim split the state is whole (the rules
+        keep "heads" whole): the rank steps its block of it, which is
+        gathered back over head_dim's axes."""
         mesh = get_mesh()
         p, sp = _gathered(self, p, cfg, mesh)
-        axes = _heads_axes(sp, self.HEAD_DIMS)
+        axes, hd, rec_sum = self._axes(sp, mesh)
+        if hd:
+            n = p["w"].shape[3]
+            blk = slice(mesh_index(mesh, hd) * n, (mesh_index(mesh, hd) + 1)
+                        * n)
+            state = {k: v[..., blk] for k, v in state.items()}
         wx = _einsum("bd,dghk->bghk", x, p["w"])
-        s2 = self._cell(p, wx, state)
+        s2 = self._cell(p, wx, state, rec_sum)
         out = reduce_from_region(_einsum("bhk,hkd->bd", s2["h"].to(x.dtype),
-                                         p["wo"]), mesh, axes,
+                                         p["wo"]), mesh, axes or hd,
                                  "decode_tp_all_reduce")
-        return out.to(x.dtype), s2
+        return out.to(x.dtype), self._whole(s2, mesh, hd)
+
+    @staticmethod
+    def _whole(state, mesh, hd):
+        """The state {c, n, h} [..., B, H, hd] whole from each rank's
+        head_dim block over ``hd`` (``state`` itself where there is
+        none)."""
+        if not hd:
+            return state
+        return {k: all_gather_dim(v, mesh_group(mesh, hd), v.dim() - 1,
+                                  "state_head_dim_all_gather").contiguous()
+                for k, v in state.items()}
 
     def seq_cache_to_state(self, cfg: ModelConfig, cache, max_context: int,
                            mesh=None, batch: int = 0):
         """``fwd_seq``'s final state is the decode state, the rank's heads
-        under a mesh as the state's layout holds them."""
-        return cache
+        under a mesh as the state's layout holds them; under a head_dim
+        split the rank's blocks are gathered whole (``_whole``)."""
+        if mesh is None:
+            return cache
+        return self._whole(cache, mesh,
+                           self._axes(_specs(self, cfg, mesh), mesh)[1])

@@ -783,10 +783,19 @@ def test_moe_ssm_phase_runs_are_cut_in_depth_only():
 def test_ssd_rank_shapes_are_phase_17s(name):
     """Phase 2's ssd_scan rows at the ranks' shapes: jamba's Mamba (d_in /
     64 heads split over "model", d_state, one data rank's 2048 tokens) and
-    xlstm's mLSTM (its heads split, head_dim and head_dim + 1)."""
+    xlstm's mLSTM (its heads split, head_dim and head_dim + 1); phase 21's
+    under the head-tp rules (every head, head_dim, a rank's head_dim block
+    + 1)."""
     from repro_torch.models.blocks import Mamba
     b, t, h, dk, dv, mlstm = chip_smoke.SSD_RANK_SHAPES[name]
     data, model = chip_smoke.MESH_LAYOUT
+    if "head_tp" in name:
+        cfg, hd = chip_smoke.HEADTP_CFG, chip_smoke.HEADTP_CFG.head_dim
+        assert (b, t) == (chip_smoke.HEADTP_BATCH // data,
+                          chip_smoke.HEADTP_PROMPT)
+        assert (h, dk, dv, mlstm) == (cfg.num_heads, hd, hd // model + 1,
+                                      True)
+        return
     run = "jamba" if name.startswith("jamba") else "xlstm"
     cfg, rows, seq, _ = chip_smoke.MOE_SSM_RUNS[run]
     assert (b, t) == (rows // data, seq)

@@ -7,8 +7,9 @@ devices, ``abstract_params``, ``opt_shardings``, ``abstract_inputs`` and
 ``benchmarks/roofline.py`` reading a port artifact unedited; serving
 cells on the fake world (decode at the remap tiers, the cross-K/V remap,
 long_500k, prefill) with their argument bytes and ``mirage`` extras
-against the reference's shard bytes; the ``head-tp`` profile's ``WAIT``;
-and the reference's byte rule of a reduce-scatter."""
+against the reference's shard bytes; two ``head-tp`` cells (head_dim over
+"model") with their argument bytes against the reference's under its
+rules; and the reference's byte rule of a reduce-scatter."""
 import json
 import os
 import subprocess
@@ -50,12 +51,20 @@ SERVE_CELLS = (("single_pod", "llama3-8b", "decode_32k", 0.0),
                ("multi_pod", "h2o-danube-3-4b", "long_500k", 0.0),
                ("single_pod", "llama3-8b", "prefill_32k", 0.0))
 
+# (mesh, arch, shape) of the head-tp cells (the reference's rules of
+# ``--profile head-tp``): xlstm's (head_dim over "model", the mLSTM and
+# sLSTM states whole) and llama's (its 8 KV heads do not split 16 ways:
+# wk/wv split head_dim)
+HEAD_TP_CELLS = (("single_pod", "xlstm-1.3b", "decode_32k"),
+                 ("single_pod", "llama3-8b", "decode_32k"))
+
 JAX_BYTES = r"""
 import json, sys, warnings
 import numpy as np
 import jax
 from repro.configs import SHAPES_BY_NAME, get_arch
-from repro.distributed.sharding import DEFAULT_RULES, mesh_context
+from repro.distributed.sharding import (
+    DEFAULT_RULES, ShardingRules, mesh_context)
 from repro.launch.dryrun import pick_optimizer
 from repro.launch.mesh import make_production_mesh
 from repro.launch.shardings import opt_shardings
@@ -93,22 +102,25 @@ def remap_bytes(model, mesh, tier):
             "resident_bytes_per_device": stack(len(plan.resident_layers))}
 
 out = {}
-for mesh_name, arch, shape_name, tier in json.loads(sys.argv[2]):
+HEAD_TP = ShardingRules.make(profile="serving", head_dim=("model",),
+                             heads=())
+cells = [c + [DEFAULT_RULES] for c in json.loads(sys.argv[2])] + [
+    c + [0.0, HEAD_TP] for c in json.loads(sys.argv[3])]
+for mesh_name, arch, shape_name, tier, rules in cells:
     mesh = make_production_mesh(multi_pod=mesh_name == "multi_pod")
     model = build_model(get_arch(arch))
     shape = SHAPES_BY_NAME[shape_name]
-    with mesh_context(mesh, DEFAULT_RULES):
-        rec = {"params": rank_bytes(model.abstract_params(mesh,
-                                                          DEFAULT_RULES))}
+    with mesh_context(mesh, rules):
+        rec = {"params": rank_bytes(model.abstract_params(mesh, rules))}
         if shape.kind == "prefill":
             rec["inputs"] = rank_bytes(model.abstract_inputs(
-                shape, mesh, DEFAULT_RULES))
+                shape, mesh, rules))
         else:
             state = model.abstract_decode_state(
-                shape.global_batch, shape.seq_len, mesh, DEFAULT_RULES)
+                shape.global_batch, shape.seq_len, mesh, rules)
             rec["state"] = rank_bytes(state)
             rec["inputs"] = rec["state"] + rank_bytes(
-                model.abstract_inputs(shape, mesh, DEFAULT_RULES))
+                model.abstract_inputs(shape, mesh, rules))
             if tier and model.cfg.is_encoder_decoder:
                 cross = rank_bytes(state["blocks"][0]["mixer"]["cross"])
                 rec["mirage"] = {"cross_kv_host_bytes_per_device": cross,
@@ -117,7 +129,8 @@ for mesh_name, arch, shape_name, tier in json.loads(sys.argv[2]):
                                  "resident_bytes_per_device": 0}
             elif tier:
                 rec["mirage"] = remap_bytes(model, mesh, tier)
-    out[f"{mesh_name}/{arch}/{shape_name}/{tier:g}"] = rec
+    tag = "head-tp" if rules is HEAD_TP else f"{tier:g}"
+    out[f"{mesh_name}/{arch}/{shape_name}/{tag}"] = rec
 shape = SHAPES_BY_NAME["train_4k"]
 for mesh_name in ("single_pod", "multi_pod"):
     mesh = make_production_mesh(multi_pod=mesh_name == "multi_pod")
@@ -148,7 +161,7 @@ def reference_bytes():
                                            os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
         [sys.executable, "-c", JAX_BYTES, ",".join(ARCH_CELLS),
-         json.dumps(SERVE_CELLS)], env=env,
+         json.dumps(SERVE_CELLS), json.dumps(HEAD_TP_CELLS)], env=env,
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -268,7 +281,7 @@ def test_serving_cell_bytes_are_the_references(reference_bytes, cell,
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         assert dryrun.main(argv) == 0
-    assert "1 ok, 0 wait, 0 failed" in capsys.readouterr().out
+    assert "1 ok, 0 failed" in capsys.readouterr().out
     tag = dryrun.cell_tag(arch, shape_name, remap_tier=tier)
     rec = json.loads((tmp_path / mesh_name / (tag + ".json")).read_text())
     ref = reference_bytes[f"{mesh_name}/{arch}/{shape_name}/{tier:g}"]
@@ -291,18 +304,29 @@ def test_serving_cell_bytes_are_the_references(reference_bytes, cell,
     assert rec["collectives"]["total_bytes"] > 0
 
 
-def test_head_tp_waits_for_9e(tmp_path, capsys):
-    """The head-tp profile, which splits head_dim, still waits, for ROADMAP
-    item 9e; ``main`` prints it as WAIT and exits 0."""
-    with pytest.raises(NotImplementedError, match="9e"):
-        dryrun.lower_cell("xlstm-1.3b", "decode_32k", None,
-                          profile="head-tp")
-    argv = ["--arch", "xlstm-1.3b", "--shape", "decode_32k", "--mesh",
-            "single_pod", "--profile", "head-tp", "--out-dir",
-            str(tmp_path)]
-    assert dryrun.main(argv) == 0
+@pytest.mark.parametrize("cell", HEAD_TP_CELLS,
+                         ids=["/".join(c) for c in HEAD_TP_CELLS])
+def test_head_tp_cell_bytes_are_the_references(reference_bytes, cell,
+                                               tmp_path, capsys):
+    """A ``--profile head-tp`` cell through ``main`` prints OK and no
+    WAIT; its argument bytes (the params, the decode state and the tokens)
+    are the reference's shard bytes under the head-tp rules, and the
+    decode state is updated in place."""
+    mesh_name, arch, shape_name = cell
+    argv = ["--arch", arch, "--shape", shape_name, "--mesh", mesh_name,
+            "--profile", "head-tp", "--out-dir", str(tmp_path)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert dryrun.main(argv) == 0
     out = capsys.readouterr().out
-    assert "WAIT" in out and "9e" in out and "0 ok, 1 wait, 0 failed" in out
+    assert "OK" in out and "WAIT" not in out and "1 ok, 0 failed" in out
+    tag = dryrun.cell_tag(arch, shape_name, profile="head-tp")
+    rec = json.loads((tmp_path / mesh_name / (tag + ".json")).read_text())
+    ref = reference_bytes[f"{mesh_name}/{arch}/{shape_name}/head-tp"]
+    assert rec["profile"] == "head-tp"
+    assert rec["memory"]["argument_bytes"] == ref["params"] + ref["inputs"]
+    assert rec["memory"]["alias_bytes"] == ref["state"]
+    assert rec["collectives"]["total_bytes"] > 0
 
 
 def test_reduce_scatter_counts_its_result_bytes():
