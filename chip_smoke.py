@@ -1248,15 +1248,77 @@ def _drive(eng, trace, profile_fn=None):
             prof)
 
 
+# ------------------------------------------------ decode graphs vs eager
+def watch_pages(eng) -> list:
+    """Record each request's allocator pages as the engine releases them
+    (finish, preemption): (rid, pages) in release order. The hook holds
+    the allocator, not the engine, so the engine (its pools, its tenants'
+    weights) goes as soon as its phase drops it."""
+    alloc = eng.allocator
+    freed, free = [], alloc.free
+
+    def logged(rid):
+        freed.append((rid, list(alloc.seq_pages.get(rid, ()))))
+        return free(rid)
+    alloc.free = logged
+    return freed
+
+
+def run_record(eng, freed) -> dict:
+    """What a graph run and an eager run of one trace must share: every
+    request's tokens, the pages each request held, the event log, the
+    ``ServingMetrics``, the host-to-device bytes the streaming fetch copied,
+    the allocator's page-id bound."""
+    return {"tokens": {r.rid: list(r.generated) for r in eng.finished},
+            "pages": list(freed), "events": list(eng.events),
+            "metrics": repr(eng.metrics()),
+            "host_fetch_bytes": eng.xfer.host_fetch_bytes,
+            "page_id_bound": eng.allocator.page_id_bound}
+
+
+def graph_summary(eng) -> dict:
+    """The engine's decode-graph counters summed over its tenants."""
+    out = Counter()
+    for st in eng.graph_stats().values():
+        out.update(st)
+    return dict(out)
+
+
+def check_graphs(tag, graph, eager, c_graph, c_eager, tok_s) -> None:
+    """The graph run against the eager run of the same trace: identical
+    records and launches (``run_record``); the graphs replayed. Logs the
+    captures, replays, capture ms, the graph pools' bytes and both decode
+    rates (``tok_s``: graph, eager)."""
+    gs = graph["graphs"]
+    log(f"[{tag}] decode graphs: {gs.get('captures', 0)} captures "
+        f"({gs.get('capture_ms', 0.0):.1f} ms), {gs.get('replays', 0)} "
+        f"replays, {gs.get('dropped', 0)} dropped, graph pools "
+        f"{gs.get('pool_bytes', 0) / 2**20:.1f} MiB; decode {tok_s[0]:.1f} "
+        f"tok/s through graphs, {tok_s[1]:.1f} tok/s eager")
+    for k in graph["record"]:
+        if graph["record"][k] != eager["record"][k]:
+            fail(f"{tag}: graph and eager runs differ in {k}:\n"
+                 f"{graph['record'][k]}\n{eager['record'][k]}")
+    if c_graph != c_eager:
+        fail(f"{tag}: launches through graphs {c_graph}, eager {c_eager}")
+    if eager["graphs"] or (DEVICE == "cuda" and not gs.get("replays")):
+        fail(f"{tag}: graph run {gs}, eager run {eager['graphs']}")
+    log(f"[{tag}] graph run identical to the eager run: tokens, pages, "
+        f"events, metrics, host->device bytes "
+        f"{graph['record']['host_fetch_bytes']}, launches")
+
+
 def serve_once(cfg, params, chunk: int, tag: str = "serve",
-               profile_fn=None):
+               profile_fn=None, graphs: bool = True):
     name = cfg.name
     eng = ServingEngine(
         {name: TenantConfig(cfg, params, max_batch=8,
                             max_context=PROMPT + NEW + 2 * PAGE,
                             paged=True)},
         mode="mirage", base_kv_pages=512, page_size=PAGE,
-        prefill_chunk_tokens=chunk, device=DEVICE, keep_prefill_logits=True)
+        prefill_chunk_tokens=chunk, device=DEVICE, keep_prefill_logits=True,
+        decode_graphs=graphs)
+    freed = watch_pages(eng)
     trace = tiny_trace([name], n_per_model=8, prompt_len=PROMPT,
                        max_new=NEW, vocab=cfg.vocab_size, seed=0)
     kernels.reset_launch_counts()
@@ -1264,14 +1326,29 @@ def serve_once(cfg, params, chunk: int, tag: str = "serve",
     counts = kernels.launch_counts()
     gen = {r.rid: list(r.generated) for r in eng.finished}
     kinds = [k for _, k, _ in eng.events]
-    log(f"[{tag}] chunk={chunk}: finished {len(eng.finished)} requests, "
+    log(f"[{tag}] chunk={chunk}: finished "
+        f"{len(eng.finished)} requests, "
         f"{sum(map(len, gen.values()))} tokens in {eng.step_idx} steps; "
         f"admit+prefill steps {t_pre:.3f} s, decode {dec_tokens} tokens in "
         f"{t_dec:.3f} s = {dec_tokens / t_dec:.1f} tok/s; remaps "
         f"{kinds.count('remap')}; launches {counts}")
     if len(eng.finished) != 8 or any(len(g) != NEW for g in gen.values()):
         fail(f"{tag} chunk={chunk}: not every request made {NEW} tokens")
-    return gen, eng.prefill_logits, counts, prof
+    run = {"record": run_record(eng, freed), "graphs": graph_summary(eng),
+           "tok_s": dec_tokens / t_dec}
+    return gen, eng.prefill_logits, counts, prof, run
+
+
+def serve_eager(cfg, params, tag: str, graph_run, c_graph,
+                profile_fn=None):
+    """``serve_once``'s monolithic run again with ``decode_graphs=False``,
+    held to the graph run's record and launches. Returns the eager run's
+    profile (``profile_fn``)."""
+    _, _, c_eager, prof, eager = serve_once(cfg, params, 0, f"{tag}-eager",
+                                            profile_fn, graphs=False)
+    check_graphs(tag, graph_run, eager, c_graph, c_eager,
+                 (graph_run["tok_s"], eager["tok_s"]))
+    return prof
 
 
 def compare_prefills(cfg, tag, mono, mono_logits, chunked, chunk_logits):
@@ -1326,8 +1403,10 @@ def phase_serve(cfg=ARCHS["llama3-8b"]):
         f" heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.3f} B params "
         f"initialised in {time.perf_counter() - t0:.1f} s")
-    mono, mono_logits, c_mono, _ = serve_once(cfg, params, 0)
-    chunked, chunk_logits, c_chunk, _ = serve_once(cfg, params, PROMPT // 2)
+    mono, mono_logits, c_mono, _, run = serve_once(cfg, params, 0)
+    chunked, chunk_logits, c_chunk, _, _ = serve_once(cfg, params,
+                                                      PROMPT // 2)
+    serve_eager(cfg, params, "serve", run, c_mono)
     worst, top, same, total = compare_prefills(
         cfg, "serve", mono, mono_logits, chunked, chunk_logits)
     log(f"[serve] prefill logits monolithic vs chunked: max|d|/max|logit| = "
@@ -1344,21 +1423,30 @@ def phase_serve(cfg=ARCHS["llama3-8b"]):
 
 
 # ---------------------------------------------------------------- phase 4
-def remap_once(tenants_params, cfg, base_pages: int):
+def remap_once(tenants_params, cfg, base_pages: int, graphs: bool = True):
+    """The remap phase's trace on ``base_pages`` pages. Returns (engine,
+    launches, its ``run_record`` beside its graph counters and decode
+    tok/s: decoded tokens over the run's wall time)."""
     eng = ServingEngine(
         {n: TenantConfig(cfg, p, max_batch=4, max_context=128, paged=True)
          for n, p in tenants_params.items()},
         mode="mirage", base_kv_pages=base_pages, page_size=PAGE,
-        prefill_chunk_tokens=64, device=DEVICE)
+        prefill_chunk_tokens=64, device=DEVICE, decode_graphs=graphs)
+    freed = watch_pages(eng)
     eng.submit(tiny_trace(list(tenants_params), n_per_model=3,
                           prompt_len=96, max_new=16, vocab=cfg.vocab_size,
                           seed=1))
     kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
     eng.run()
     _sync()
+    wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     eng.allocator.check_invariants()
-    return eng, counts
+    tokens = sum(len(r.generated) for r in eng.finished)
+    return eng, counts, {"record": run_record(eng, freed),
+                         "graphs": graph_summary(eng), "tok_s": tokens / wall}
 
 
 def phase_remap(cfg=dataclasses.replace(ARCHS["llama3-8b"], num_layers=2)):
@@ -1379,9 +1467,10 @@ def phase_remap(cfg=dataclasses.replace(ARCHS["llama3-8b"], num_layers=2)):
         f"layer; each remap grows both pools by {per_remap / 2**30:.2f} GiB, "
         f"room for {room} remap events on the card; expected here: one "
         f"pressure episode, so 1 remap (then a revert once calm)")
-    results, launches = {}, Counter()
+    results, launches, runs = {}, Counter(), {}
     for label, base in (("pressure", 16), ("ample", 256)):
-        eng, counts = remap_once(tp, cfg, base)
+        eng, counts, runs[label] = remap_once(tp, cfg, base)
+        runs[label]["launches"] = counts
         launches.update(counts)
         ev = [(s, k, d) for s, k, d in eng.events if k in ("remap", "revert")]
         gen = {r.rid: list(r.generated) for r in eng.finished}
@@ -1406,7 +1495,15 @@ def phase_remap(cfg=dataclasses.replace(ARCHS["llama3-8b"], num_layers=2)):
         fail("remap: peak memory above 80 GB")
     log(f"[remap] {kinds.count('remap')} remap and {kinds.count('revert')} "
         f"revert events; generated tokens identical to the ample-pool run")
-    del results, p_eng, tp
+    del results, p_eng
+    _, c_eager, eager = remap_once(tp, cfg, 16, graphs=False)
+    check_graphs("remap", runs["pressure"], eager,
+                 runs["pressure"]["launches"], c_eager,
+                 (runs["pressure"]["tok_s"], eager["tok_s"]))
+    if DEVICE == "cuda" and runs["pressure"]["graphs"]["captures"] < 2:
+        fail(f"remap: a remap must miss the graph cache: "
+             f"{runs['pressure']['graphs']}")
+    del tp
     _free()
     return launches
 
@@ -1416,7 +1513,9 @@ def _tokens(seq) -> torch.Tensor:
     return torch.from_numpy(np.asarray(seq, np.int64)).to(DEVICE)
 
 
-_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+# the host's launch calls: a kernel each, or a captured decode step's graph
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cudaGraphLaunch")
 
 
 def _is_expert_bmm(event, expert_shape) -> bool:
@@ -1506,17 +1605,20 @@ def _decode_step_fn(model, params, state, max_context: int):
     return lambda: model.decode_step(params, state, tokens, max_context)
 
 
-def _serve_dense(cfg, params, tag, batch, prompt, new, max_context):
+def _serve_dense(cfg, params, tag, batch, prompt, new, max_context,
+                 graphs: bool = True):
     """``batch`` requests of ``prompt`` tokens, ``new`` new tokens each,
     through the engine as one dense tenant with an ample KV budget: every
     request finished with ``new`` tokens, no preemption or remap, every
-    first-token logit row finite and not all zero. Returns the engine and
-    the launch counts of its run."""
+    first-token logit row finite and not all zero. Returns the engine, the
+    launch counts of its run and its ``run_record`` beside its graph
+    counters and decode tok/s."""
     eng = ServingEngine(
         {cfg.name: TenantConfig(cfg, params, max_batch=batch,
                                 max_context=max_context, paged=False)},
         mode="mirage", base_kv_pages=512, page_size=PAGE, device=DEVICE,
-        keep_prefill_logits=True)
+        keep_prefill_logits=True, decode_graphs=graphs)
+    freed = watch_pages(eng)
     trace = tiny_trace([cfg.name], n_per_model=batch, prompt_len=prompt,
                        max_new=new, vocab=cfg.vocab_size, seed=0)
     kernels.reset_launch_counts()
@@ -1538,7 +1640,9 @@ def _serve_dense(cfg, params, tag, batch, prompt, new, max_context):
                 or not a.abs().max() > 0:
             fail(f"{tag}: prefill logits of {rid} are {tuple(a.shape)}, "
                  f"max |logit| {a.abs().max().item()}")
-    return eng, counts
+    return eng, counts, {"record": run_record(eng, freed),
+                         "graphs": graph_summary(eng),
+                         "tok_s": dec_tokens / t_dec}
 
 
 def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
@@ -1556,8 +1660,8 @@ def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
         f"{n_params / 1e9:.3f} B params initialised in "
         f"{time.perf_counter() - t0:.1f} s")
     max_context = PROMPT + NEW + 2
-    eng, counts = _serve_dense(cfg, params, "xlstm", 8, PROMPT, NEW,
-                               max_context)
+    eng, counts, run = _serve_dense(cfg, params, "xlstm", 8, PROMPT, NEW,
+                                    max_context)
     log(f"[xlstm] {counts['ssd_scan'] / 8:.0f} ssd_scan per prompt; "
         f"{n_mlstm} mLSTM layers")
     if DEVICE == "cuda" and counts["ssd_scan"] != 8 * n_mlstm:
@@ -1581,6 +1685,10 @@ def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
         f"{LOGIT_RTOL}; max|logit| {top:.3g})")
     if not worst <= LOGIT_RTOL:
         fail(f"xlstm: prefill/decode logits differ by {worst} > {LOGIT_RTOL}")
+    _, c_eager, eager = _serve_dense(cfg, params, "xlstm-eager", 8, PROMPT,
+                                     NEW, max_context, graphs=False)
+    check_graphs("xlstm", run, eager, counts, c_eager,
+                 (run["tok_s"], eager["tok_s"]))
     if DEVICE == "cuda":
         log_profile("xlstm", 8, step_profile(_decode_step_fn(
             model, params, eng.tenants[cfg.name].state, max_context)))
@@ -1762,10 +1870,11 @@ def phase_moonshot(cfg=ARCHS["moonshot-v1-16b-a3b"]):
     expert_shape = (m.num_experts, cfg.d_model, m.d_expert)
     prof_fn = (lambda step: step_profile(step, 3, expert_shape)) \
         if DEVICE == "cuda" else None
-    mono, mono_logits, c_mono, prof = serve_once(cfg, params, 0, "moe",
-                                                 prof_fn)
-    chunked, chunk_logits, c_chunk, _ = serve_once(cfg, params, PROMPT // 2,
-                                                   "moe")
+    mono, mono_logits, c_mono, prof, run = serve_once(cfg, params, 0, "moe",
+                                                      prof_fn)
+    chunked, chunk_logits, c_chunk, _, _ = serve_once(cfg, params,
+                                                      PROMPT // 2, "moe")
+    prof_eager = serve_eager(cfg, params, "moe", run, c_mono, prof_fn)
     worst, top, same, total = compare_prefills(
         cfg, "moe", mono, mono_logits, chunked, chunk_logits)
     log(f"[moe] prefill logits monolithic vs chunked: max|d|/max|logit| = "
@@ -1774,7 +1883,10 @@ def phase_moonshot(cfg=ARCHS["moonshot-v1-16b-a3b"]):
         f"different assignments; max|logit| {top:.3g}); generated tokens "
         f"agreeing: {same}/{total} = {same / total:.3f}")
     if prof is not None:
+        # the expert products are CPU ops of the eager step only: a graph's
+        # replay runs no CPU op to attribute its kernels to
         log_profile("moe", 8, prof, weight_read_ms(params, cfg, 8))
+        log_profile("moe-eager", 8, prof_eager, weight_read_ms(params, cfg, 8))
     log(f"[moe] peak memory {_peak() / 2**30:.2f} GiB")
     launches = check_paged_launches("moe", c_mono, c_chunk)
     del params, model
@@ -1835,8 +1947,8 @@ def phase_jamba(cfg=dataclasses.replace(ARCHS["jamba-v0.1-52b"],
     n_mamba = sum(ld.mixer == "mamba" for ld in pattern) * model.repeats
     n_attn = sum(ld.mixer == "attn" for ld in pattern) * model.repeats
     max_context = PROMPT + NEW + 2
-    eng, counts = _serve_dense(cfg, params, "hybrid", 8, PROMPT, NEW,
-                               max_context)
+    eng, counts, _ = _serve_dense(cfg, params, "hybrid", 8, PROMPT, NEW,
+                                  max_context)
     log(f"[hybrid] ({n_mamba} Mamba and {n_attn} attention layers a prompt)")
     if DEVICE == "cuda" and (counts["ssd_scan"] != 8 * n_mamba
                              or counts["flash_attention"] != 8 * n_attn):
@@ -1887,23 +1999,35 @@ def check_ring_against_paged(model, params, prompt, max_context: int):
     return ((a - b).abs().max() / a.abs().max()).item()
 
 
-def phase_danube(cfg=ARCHS["h2o-danube-3-4b"]):
-    _reset_peak()
-    model, params = _init(cfg, 11, "ring", f"window {cfg.sliding_window}, "
-                          f"d_ff {cfg.d_ff}, ")
-    max_context = RING_PROMPT + RING_NEW + 2
+def ring_once(cfg, params, max_context: int, graphs: bool = True):
+    """The ring phase's trace through the engine (one dense tenant). Returns
+    (engine, trace, launches, (admit+prefill s, decode s, decoded tokens),
+    its ``run_record`` beside its graph counters and decode tok/s)."""
     pages = -(-max_context // PAGE)
     eng = ServingEngine(
         {cfg.name: TenantConfig(cfg, params, max_batch=RING_BATCH,
                                 max_context=max_context, paged=False)},
         mode="mirage", base_kv_pages=2 * RING_BATCH * pages, page_size=PAGE,
-        device=DEVICE, keep_prefill_logits=True)
+        device=DEVICE, keep_prefill_logits=True, decode_graphs=graphs)
+    freed = watch_pages(eng)
     trace = tiny_trace([cfg.name], n_per_model=RING_BATCH,
                        prompt_len=RING_PROMPT, max_new=RING_NEW,
                        vocab=cfg.vocab_size, seed=0)
     kernels.reset_launch_counts()
     t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
     counts = kernels.launch_counts()
+    return eng, trace, counts, (t_pre, t_dec, dec_tokens), {
+        "record": run_record(eng, freed), "graphs": graph_summary(eng),
+        "tok_s": dec_tokens / t_dec}
+
+
+def phase_danube(cfg=ARCHS["h2o-danube-3-4b"]):
+    _reset_peak()
+    model, params = _init(cfg, 11, "ring", f"window {cfg.sliding_window}, "
+                          f"d_ff {cfg.d_ff}, ")
+    max_context = RING_PROMPT + RING_NEW + 2
+    eng, trace, counts, (t_pre, t_dec, dec_tokens), run = ring_once(
+        cfg, params, max_context)
     kinds = [k for _, k, _ in eng.events]
     ring = model.impl._cache_len(max_context)
     log(f"[ring] dense ring tenant ({ring}-slot ring, prompts of "
@@ -1922,6 +2046,10 @@ def phase_danube(cfg=ARCHS["h2o-danube-3-4b"]):
         fail(f"ring: flash_attention launched {counts['flash_attention']} "
              f"times, expected {RING_BATCH * cfg.num_layers}")
     del eng
+    *_, c_eager, _, eager = ring_once(cfg, params, max_context, graphs=False)
+    check_graphs("ring", run, eager, counts, c_eager,
+                 (run["tok_s"], eager["tok_s"]))
+    _free()
     gap = check_ring_against_paged(model, params, np.array(trace[0].prompt),
                                    max_context)
     log(f"[ring] one decode step at position {RING_PROMPT} (past the "
@@ -2047,8 +2175,8 @@ def phase_whisper(cfg=ARCHS["whisper-medium"]):
         f"initialised in {time.perf_counter() - t0:.1f} s")
     check_whisper_prefill(cfg, model, params)
     max_context = WHISPER_SERVE_PROMPT + NEW + 2
-    eng, counts = _serve_dense(cfg, params, "whisper", 8,
-                               WHISPER_SERVE_PROMPT, NEW, max_context)
+    eng, counts, _ = _serve_dense(cfg, params, "whisper", 8,
+                                  WHISPER_SERVE_PROMPT, NEW, max_context)
     per_request = cfg.num_encoder_layers + 2 * cfg.num_layers
     log(f"[whisper] flash launches {counts['flash_attention']} "
         f"({per_request} a request: encoder, decoder self and cross)")
@@ -2099,8 +2227,8 @@ def phase_llava(cfg=dataclasses.replace(ARCHS["llava-next-34b"],
     if cfg.num_layers != full:
         log(f"[vlm] depth cut to {cfg.num_layers} of {full} layers")
     max_context = LLAVA_CONTEXT
-    eng, counts = _serve_dense(cfg, params, "vlm", LLAVA_BATCH, LLAVA_PROMPT,
-                               LLAVA_NEW, max_context)
+    eng, counts, _ = _serve_dense(cfg, params, "vlm", LLAVA_BATCH,
+                                  LLAVA_PROMPT, LLAVA_NEW, max_context)
     if DEVICE == "cuda" and \
             counts["flash_attention"] != LLAVA_BATCH * cfg.num_layers:
         fail(f"vlm: flash_attention launched {counts['flash_attention']} "

@@ -116,6 +116,11 @@ class StreamingFetch:
         self.layer_bytes = sum(a[0].numel() * a.element_size()
                                for a in tree_leaves(cycle))
         self.stream = torch.cuda.Stream(self.device)
+        self.reset()
+
+    def reset(self) -> None:
+        """Start a new step's walk over the repeats (the stream and the
+        slot buffers stay: a captured decode step reuses them)."""
         self.ready: Dict[int, Tuple[torch.cuda.Event, Any]] = {}
         self.issued = 0
         self.h2d_bytes = 0

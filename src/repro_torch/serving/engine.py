@@ -21,21 +21,32 @@ event-driven simulator (serving/simulator.py) owns latency/throughput.
 Output-equivalence of mirage vs vllm modes is what the integration tests
 assert — remapping must never change results.
 
-The port runs eagerly (no jit cache). It serves paged attention-stack
-tenants (dense or MoE FFN) and dense (``paged=False``) tenants of any
-stack: attention (a K/V cache per slot, a ring for a sliding window),
-hybrid Mamba + attention (jamba), recurrent (xLSTM), VLM (llava: a prefix
-of patch embeddings) and enc-dec (whisper: encoder, cross-attention); a
-remapped dense tenant streams its cycling repeats (one repeat = one
-pattern period of layers, a decoder layer for enc-dec) from pinned host
-memory exactly as a paged one does. A paged VLM or enc-dec tenant is
-refused (``ValueError``): the reference has no correct answer for either
-(ROADMAP queue 3). The fleet hooks of the cluster layer move real K/V
-pages between replicas: ``export_prefix`` gathers a cached prefix's pages
-from the pools into CPU tensors, ``import_prefix`` writes them into fresh
-pages of another engine's pools in place; ``prefix_snapshot``,
-``withdraw_pending`` and ``drain_for_removal`` (scale-out pre-warm and
-scale-in) are the reference's, unchanged.
+On a CUDA device the decode step runs compiled, as the reference's
+jitted ``_decode_fn`` does: each tenant's step is captured once per key
+as a CUDA graph and replayed (``serving/decode_graph.py``; the key is the
+reference's (resident, cycle, paged) plus the storage a graph bakes in),
+with the streaming fetch of cycling layers inside the graph and the argmax
+too, so a step reads back only its token ids. ``decode_graphs=False``
+decodes eagerly instead, as on the CPU (the plain version every
+differential test runs). Prefill stays eager, as in the reference. The
+engine keeps host mirrors of each paged tenant's page table and write
+cursors, so no step reads the table back from the device.
+
+It serves paged attention-stack tenants (dense or MoE FFN) and dense
+(``paged=False``) tenants of any stack: attention (a K/V cache per slot,
+a ring for a sliding window), hybrid Mamba + attention (jamba),
+recurrent (xLSTM), VLM (llava: a prefix of patch embeddings) and enc-dec
+(whisper: encoder, cross-attention); a remapped dense tenant streams its
+cycling repeats (one repeat = one pattern period of layers, a decoder
+layer for enc-dec) from pinned host memory exactly as a paged one does.
+A paged VLM or enc-dec tenant is refused (``ValueError``): the reference
+has no correct answer for either (ROADMAP queue 3). The fleet hooks of
+the cluster layer move real K/V pages between replicas:
+``export_prefix`` gathers a cached prefix's pages from the pools into
+CPU tensors, ``import_prefix`` writes them into fresh pages of another
+engine's pools in place; ``prefix_snapshot``, ``withdraw_pending`` and
+``drain_for_removal`` (scale-out pre-warm and scale-in) are the
+reference's, unchanged.
 """
 from __future__ import annotations
 
@@ -55,6 +66,7 @@ from repro_torch.core import (
 )
 from repro_torch.models import build_model
 from repro_torch.models.common import dtype_of, tree_bytes, tree_leaves
+from repro_torch.serving.decode_graph import DecodeGraphs, decode_fn
 from repro_torch.serving.hw import HardwareSpec, TPU_V5E
 from repro_torch.serving.perf_model import PerfModel
 from repro_torch.serving.request import (
@@ -146,7 +158,7 @@ class Tenant:
     """Runtime state for one hosted model."""
 
     def __init__(self, name: str, tc: TenantConfig, hw: HardwareSpec,
-                 device):
+                 device, decode_graphs: bool = False):
         self.name = name
         self.cfg = tc.cfg
         self.model = build_model(tc.cfg)
@@ -180,6 +192,12 @@ class Tenant:
         self.state = None if tc.paged else \
             self.model.init_decode_state(tc.max_batch, tc.max_context,
                                          self.device)
+        # host mirrors of a paged tenant's page table and write cursors
+        self.pt_host: Optional[np.ndarray] = None
+        self.ctx_host: Optional[np.ndarray] = None
+        # the compiled decode step's cache (CUDA only)
+        self.graphs = DecodeGraphs(self.device) \
+            if decode_graphs and self.device.type == "cuda" else None
 
     def init_paged_state(self, total_pages: int, page_size: int):
         """Pool covers every allocator page id + one scratch page (used by
@@ -191,13 +209,13 @@ class Tenant:
         dt, dev = dtype_of(cfg), self.device
         scratch = total_pages
         shape = (r, total_pages + 1, page_size, hkv, hd)
+        self.pt_host = np.full((self.max_batch, n), scratch, np.int32)
+        self.ctx_host = np.zeros((self.max_batch,), np.int32)
         self.state = {
             "pool_k": torch.zeros(shape, dtype=dt, device=dev),
             "pool_v": torch.zeros(shape, dtype=dt, device=dev),
-            "page_table": torch.full((self.max_batch, n), scratch,
-                                     dtype=torch.int32, device=dev),
-            "ctx": torch.zeros((self.max_batch,), dtype=torch.int32,
-                               device=dev),
+            "page_table": torch.from_numpy(self.pt_host.copy()).to(dev),
+            "ctx": torch.from_numpy(self.ctx_host.copy()).to(dev),
         }
 
     def grow_pool(self, new_total_pages: int):
@@ -215,6 +233,7 @@ class Tenant:
         old_scratch, new_scratch = cur, new_total_pages
         pt = self.state["page_table"]
         pt = torch.where(pt == old_scratch, new_scratch, pt)
+        self.pt_host[self.pt_host == old_scratch] = new_scratch
         self.state = dict(
             self.state, pool_k=grow(self.state["pool_k"]),
             pool_v=grow(self.state["pool_v"]), page_table=pt)
@@ -257,12 +276,12 @@ class Tenant:
             self.set_row(slot, self.page_row([]), 0)
 
     def set_row(self, slot: int, row: np.ndarray, ctx: int) -> None:
-        """Install a page-table row and write cursor for ``slot``."""
-        pt = self.state["page_table"].clone()
-        pt[slot] = torch.from_numpy(row).to(pt.device)
-        c = self.state["ctx"].clone()
-        c[slot] = ctx
-        self.state = dict(self.state, page_table=pt, ctx=c)
+        """Install a page-table row and write cursor for ``slot``, in the
+        host mirrors and in place on the device."""
+        self.pt_host[slot] = row
+        self.ctx_host[slot] = ctx
+        self.state["page_table"][slot] = torch.from_numpy(self.pt_host[slot])
+        self.state["ctx"][slot] = ctx
 
 
 class ServingEngine:
@@ -284,6 +303,7 @@ class ServingEngine:
         slack_margin: float = 0.0,
         device="cuda",
         keep_prefill_logits: bool = False,
+        decode_graphs: bool = True,
     ):
         """``prefill_chunk_tokens``: > 0 enables token-budget chunked
         prefill for paged tenants — an admitted prompt is computed in
@@ -300,7 +320,11 @@ class ServingEngine:
         where the tenants' params, pools and compute live ("cuda" by
         default; the tests pass "cpu"). ``keep_prefill_logits``: keep each
         request's first-token logits (f32, on the CPU) in
-        ``prefill_logits[rid]``, so runs can be compared beyond argmax."""
+        ``prefill_logits[rid]``, so runs can be compared beyond argmax.
+        ``decode_graphs``: on a CUDA device, decode through captured CUDA
+        graphs (the default); False decodes eagerly, to hold the graphs
+        against the eager step. No effect on the CPU, which decodes
+        eagerly."""
         assert mode in ("mirage", "vllm", "swap")
         self.mode = mode
         self.hw = hw
@@ -317,7 +341,7 @@ class ServingEngine:
         self.device = torch.device(device)
         self.prefill_logits: Optional[Dict[str, torch.Tensor]] = \
             {} if keep_prefill_logits else None
-        self.tenants = {n: Tenant(n, tc, hw, self.device)
+        self.tenants = {n: Tenant(n, tc, hw, self.device, decode_graphs)
                         for n, tc in tenants.items()}
         self.allocator = PagedKVAllocator(base_kv_pages, page_size)
         self.store = MetadataStore(MemoryInfo(
@@ -924,6 +948,7 @@ class ServingEngine:
             logits, t.state = t.model.impl.prefill_chunk_paged(
                 t.params, t.state, r.slot, tokens, r.prefill_pos)
             r.prefill_pos += chunk
+            t.ctx_host[r.slot] = r.prefill_pos
             spent += chunk
             if r.prefill_pos >= r.prompt_len:
                 r.prefilling = False
@@ -1003,24 +1028,20 @@ class ServingEngine:
             tokens[r.slot] = r.generated[-1]
         if t.paged:
             # per-token page allocations land in the allocator; sync the
-            # running slots' page-table rows before the step
-            pt = t.state["page_table"].cpu().numpy().copy()
+            # running slots' page-table rows (host mirror) before the step
             for r in reqs:
-                pt[r.slot] = t.page_row(self.allocator.seq_pages[r.rid])
-            t.state = dict(t.state,
-                           page_table=torch.from_numpy(pt).to(t.device))
-        tokens = torch.from_numpy(tokens).to(t.device)
+                t.pt_host[r.slot] = t.page_row(
+                    self.allocator.seq_pages[r.rid])
         # the interim plan mid-drain keeps pending layers in the cycle set,
         # so the remapped fetch path stays consistent through a tier switch
         plan = self.xfer.plans[t.name]
         remapped = plan.m > 0
         batch = len(reqs)
         avg_ctx = sum(r.total_len for r in reqs) / batch
+        _logits, choices = self._decode_tokens(t, tokens, plan)
+        if t.paged:
+            t.ctx_host += 1         # every row's cursor, as the step's
         if remapped:
-            resident, cycle, maps = self.xfer.split[t.name]
-            fetch = make_fetch(resident, cycle, maps, slots=max(plan.beta, 1))
-            logits, t.state = self._decode_fn(t, tokens, fetch)
-            self.xfer.host_fetch_bytes += getattr(fetch, "h2d_bytes", 0)
             # shared-pipeline bubble accounting (same event model and
             # inputs the simulator charges for this plan)
             t_c_layer, t_f_layer = t.perf.pipeline_inputs(
@@ -1032,8 +1053,6 @@ class ServingEngine:
             # simulator's denominator
             self.xfer.stats.decode_time_s += \
                 t.perf.decode_step_time(batch, avg_ctx)
-            logits, t.state = self._decode_fn(t, tokens)
-        choices = torch.argmax(logits, dim=-1).cpu().numpy()
         for r in list(reqs):
             r.generated.append(int(choices[r.slot]))
             r.token_times.append(float(self.step_idx))
@@ -1042,15 +1061,36 @@ class ServingEngine:
                 self._finish(t, r)
         return pressure
 
+    def _decode_tokens(self, t: Tenant, tokens: np.ndarray, plan):
+        """One decode step of ``t`` for the batch's last tokens ``tokens``
+        [max_batch] under ``plan``: through the tenant's graph cache (the
+        reference's jitted ``_decode_fn``) where it has one, else eagerly.
+        Returns (logits [max_batch, V], valid until the tenant's next step;
+        the argmax of each row on the host)."""
+        split = self.xfer.split[t.name]
+        if t.graphs is not None:
+            logits, choices, h2d = t.graphs.step(
+                t, plan, split, tokens, t.pt_host if t.paged else None,
+                t.ctx_host if t.paged else None)
+            self.xfer.host_fetch_bytes += h2d
+            return logits, choices
+        if t.paged:
+            t.state = dict(t.state, page_table=torch.from_numpy(
+                t.pt_host.copy()).to(t.device))
+        fetch = None
+        if plan.m > 0:
+            resident, cycle, maps = split
+            fetch = make_fetch(resident, cycle, maps, slots=max(plan.beta, 1))
+        logits, t.state = self._decode_fn(
+            t, torch.from_numpy(tokens).to(t.device), fetch)
+        self.xfer.host_fetch_bytes += getattr(fetch, "h2d_bytes", 0)
+        return logits, torch.argmax(logits, dim=-1).cpu().numpy()
+
     @staticmethod
     def _decode_fn(t: Tenant, tokens, fetch=None):
-        """One decode step of tenant ``t``: against its paged pool, or
+        """One eager decode step of tenant ``t``: against its paged pool, or
         against its dense decode state (both updated in place)."""
-        if t.paged:
-            return t.model.impl.decode_step_paged(t.params, t.state, tokens,
-                                                  fetch=fetch)
-        return t.model.decode_step(t.params, t.state, tokens, t.max_context,
-                                   fetch=fetch)
+        return decode_fn(t, t.state, tokens, fetch)
 
     # ------------------------------------------------------------ preemption
     def _preempt_one(self, exclude: str = "") -> bool:
@@ -1118,6 +1158,13 @@ class ServingEngine:
         m._decode_time = st.decode_time_s
         m.unfinished = self.inflight()
         return m
+
+    def graph_stats(self) -> Dict[str, Dict[str, Any]]:
+        """Per-tenant decode-graph counters: captures, replays, graphs
+        dropped, capture ms and the bytes the live graphs' captures
+        reserved (empty where the engine decodes eagerly)."""
+        return {n: dataclasses.asdict(t.graphs.stats)
+                for n, t in self.tenants.items() if t.graphs is not None}
 
     def tier_metrics(self) -> Dict[str, ServingMetrics]:
         """Tail metrics per SLO tier (engine-step clock)."""
