@@ -103,29 +103,41 @@ no CUDA device or any phase fails. Phases:
 14. train: (a) llama3-8b at full width, cut to 8 of its 32 layers (2.80 B
    params; with AdamW's f32 moments and the f32 clipped gradients ~45 GB,
    so 16 layers, 72.6 GB before any activation, or all 32 do not fit one
-   card), bf16,
-   AdamW, ``remat_policy="dots_saveable"``, one sequence of 4096 tokens
-   (train_4k's, its global batch of 256 cut to 1) through
-   ``make_train_step``: 3 steps on fresh batches, then 10 on one fixed batch
-   whose loss must fall; every loss and grad norm finite, every parameter
+   card), bf16, AdamW, ``remat_policy="dots_saveable"``, one sequence of
+   4096 tokens (train_4k's, its global batch of 256 cut to 1): 3 steps on
+   fresh batches, then 10 on one fixed batch whose loss must fall; the
+   first 3 through the eager ``make_train_step`` (forward, backward and
+   optimizer timed by CUDA events, the last one profiled), the other 10
+   through the compiled step (``training.train_graph``: one CUDA graph,
+   captured at the first of them and replayed; the last one profiled:
+   one host launch); every loss and grad norm finite, every parameter
    leaf with a nonzero gradient at every step (a kernel output without
-   ``grad_fn`` would leave its projections none), forward, backward and
-   optimizer timed by CUDA events, tokens/s, peak memory, launches a step
-   (flash runs each attention forward, again in the recompute) and, from
-   the profiled last step, the device's idle share. (b) the same width cut
-   to 2 layers at 512 tokens: the loss and each leaf's gradient on the card
-   (bf16, kernels) against the same weights in f32 on the CPU (plain
-   versions). (c) xlstm-1.3b at full width and depth (48 layers), bf16,
-   AdamW, no remat, 3 steps on one 512-token batch: the same checks and
-   times (no profile: its sLSTM loops launch ~10^5 kernels a step;
-   ``tools/profile_torch_train.py`` profiles it), ``ssd_scan`` in every
-   mLSTM forward. (d) the flash Function's dq, dk, dv
-   and the kernel's lse at (a)'s shape and at danube's window shape, and
-   the ssd Function's gradients at the xLSTM and Mamba widths, against
-   autograd through the plain versions. (e) the kernel at (a)'s shape with
-   its lse, the plain flash backward, and one causal SDPA forward (plus
-   backward) beside them as yardsticks; the ssd Function's plain backward
-   at xLSTM's shape.
+   ``grad_fn`` would leave its projections none), wall, device time and
+   idle share of an eager step and of a replay, capture ms, the graph's
+   pool, tokens/s, peak memory, launches a step (flash runs each
+   attention forward, again in the recompute; the graph's equal the eager
+   step's). (b) the same width cut to 2 layers at 512 tokens: the loss and
+   each leaf's gradient on the card (bf16, kernels) against the same
+   weights in f32 on the CPU (plain versions). (c) xlstm-1.3b at full
+   width and depth (48 layers), bf16, AdamW, no remat, 3 steps on one
+   512-token batch from one start state: eagerly, again, and through the
+   compiled step; in each run every parameter leaf with a nonzero
+   gradient at every step, as in (a); the graph run's loss must fall,
+   ``ssd_scan`` in every mLSTM forward; wall a step of both, the replays' device span (CUDA
+   events; ``tools/profile_torch_train.py`` profiles either step), capture
+   and pool; the three runs held as in (e). (d) the flash Function's dq,
+   dk, dv and the kernel's lse at (a)'s shape and at danube's window
+   shape, and the ssd Function's gradients at the xLSTM and Mamba widths,
+   against autograd through the plain versions. (e) the graph against the
+   eager step: llama3-8b at full width cut to 2 layers, 3 fresh batches of
+   4096 tokens from one start state, eagerly, again and through the
+   compiled step: losses, grad norms, every parameter leaf and optimizer
+   moment bitwise equal, and the two eager runs too (where they differ,
+   the gradients of two eager backward passes name the leaves, and the
+   phase fails). (f) the kernel at (a)'s shape
+   with its lse, the plain flash backward, and one causal SDPA forward
+   (plus backward) beside them as yardsticks; the ssd Function's plain
+   backward at xLSTM's shape.
 15. distributed: (a) ``repro_torch.launch.serve`` with its default flags
    on the card (llama3-8b and h2o-danube-3-4b scaled to 4 layers, dense
    tenants: flash in every prefill), every request finished and the
@@ -249,6 +261,8 @@ from repro_torch.training import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.training.optimizer import Optimizer  # noqa: E402
+from repro_torch.training.train_graph import compile_train_step  # noqa: E402,E501
+from repro_torch.kernels.graphs import GraphStats  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
     MeshLayout, mesh_context, mesh_group,
 )
@@ -2594,6 +2608,26 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 2e-2, 5e-2
 # of host-bound time; PERF.md); tools/profile_torch_train.py profiles
 # either
 XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_REMAT = 512, 3, "none"
+# (a) and (c) run through the compiled step (``training.train_graph``, the
+# counterpart of the reference's ``jax.jit`` of the step). (a): the first
+# TRAIN_EAGER steps run eagerly (forward, backward and optimizer timed by
+# marks; the last one profiled), the rest through the graph (the first of
+# them its capture, whose eager warm-up is that step; the last one
+# profiled). (c): the eager run, the eager run again and the graph run
+# from one start state ((e)). The eager step's peaks as PERF.md records
+# them from before the compiled step, printed beside this run's
+TRAIN_EAGER = 3
+EAGER_PEAK_GIB = {"train": 49.88, "train-xlstm": 15.70}
+# (e) the graph against the eager step: one start state through
+# IDENTITY_STEPS eager steps, again, and through the compiled step; the
+# losses, grad norms, every parameter leaf and every optimizer moment of
+# the three runs, bitwise (two eager runs that differ fail too, naming the
+# leaves whose gradients differ). llama3-8b at full width cut to
+# IDENTITY_LAYERS layers (1.49 B params, ~15 GB of bf16 weights and f32
+# moments: three copies of the state and a step fit the card; at 8 layers
+# one copy is ~28 GB) at TRAIN_SEQ tokens, dots_saveable, fresh batches
+# (they pass through the graph's fixed buffers); xlstm-1.3b is (c)'s run
+IDENTITY_LAYERS, IDENTITY_STEPS = 2, 3
 # (d) the kernels' gradients: FlashAttention's dq, dk, dv (kernel forward,
 # plain backward) against autograd through the plain forward in f32 on the
 # same bf16 inputs, relative Frobenius error: the bf16 rounding of the
@@ -2651,97 +2685,86 @@ def instrument_step(model, opt):
     return Optimizer(opt.init, update), marks, grad_max
 
 
-def train_run(tag, model, params, batches, remat=TRAIN_REMAT,
-              profile_last=False):
-    """AdamW steps through ``make_train_step`` on ``batches`` (one a step),
-    each timed: forward, backward and optimizer by marks on the device's
-    timeline, the step's wall time on the host. Launch counts are reset
-    just before the steps and read just after. With ``profile_last``, the
-    last step runs under the profiler (launches, device time, idle share
-    against the mean wall time of the others). Returns (records, launch
-    counts, profile or None)."""
-    opt, marks, grad_max = instrument_step(
-        model, make_optimizer(OptimizerConfig(**TRAIN_OPT)))
-    opt_state = opt.init(params)
-    step = make_train_step(model, opt, remat_policy=remat)
-    _sync()
-    kernels.reset_launch_counts()
+def run_steps(tag, part, step, params, state, batches, probe=None,
+              grad_max=None, marks=None, profile_last=False, first=0):
+    """One run of ``step`` over ``batches`` (one a step) from (params,
+    state), each step logged as step ``first + i`` of part ``part``:
+    launch counts and peak memory reset just before the run and read just
+    after; each step's loss, grad norm, wall time on the host, device span
+    between CUDA events and number of parameter leaves whose clipped
+    gradient is all zero (``probe``: ``grad_probe``'s buffer, read after
+    each step, or ``grad_max``: ``instrument_step``'s list); forward,
+    backward and optimizer ms from ``instrument_step``'s ``marks``; the
+    last step under the profiler with ``profile_last``. Fails on a
+    non-finite loss or grad norm and on a leaf with an all-zero gradient
+    (a kernel output without grad_fn). Returns {"recs", "counts", "peak",
+    "prof", "end": the last (params, state)}."""
+    grad_max = [] if probe is not None else grad_max
     recs, prof = [], None
+    _sync()
+    _reset_peak()
+    kernels.reset_launch_counts()
     for i, batch in enumerate(batches):
         def one():
-            nonlocal params, opt_state
-            params, opt_state, m = step(params, opt_state, batch)
+            nonlocal params, state
+            params, state, m = step(params, state, batch)
             return m
+        t0, start = time.perf_counter(), _mark()
         if profile_last and i == len(batches) - 1:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as p:
-                t0 = time.perf_counter()
-                m = one()
-                _sync()
-                prof_wall = time.perf_counter() - t0
-            avg = p.key_averages()
-            prof = {"launches": sum(e.count for e in avg
-                                    if e.key in _LAUNCH_KEYS),
-                    "dev_ms": sum(e.self_device_time_total for e in avg
-                                  if str(getattr(e, "device_type", ""))
-                                  .endswith("CUDA")) / 1e3,
-                    "prof_ms": prof_wall * 1e3}
-            wall = prof_wall
+            m, prof = profiled_call(one)
         else:
-            t0 = time.perf_counter()
             m = one()
-            _sync()
-            wall = time.perf_counter() - t0
+        end = _mark()
+        _sync()
         recs.append({"loss": m["loss"].item(),
                      "grad_norm": m["grad_norm"].item(),
-                     "wall_ms": wall * 1e3})
-    counts = kernels.launch_counts()
+                     "wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "marks": (start, end)})
+        if probe is not None:
+            grad_max.append(probe.clone())
+    run = {"recs": recs, "counts": kernels.launch_counts(), "peak": _peak(),
+           "prof": prof, "end": (params, state)}
     _sync()
-    for rec, mk, gm in zip(recs, marks, grad_max):
+    for rec, gm in zip(recs, grad_max):
+        rec["span_ms"] = _between(*rec.pop("marks"))
+        rec["zero_grad_leaves"] = int((gm == 0).sum())
+    for rec, mk in zip(recs, marks or []):
         rec["fwd_ms"] = _between(mk[0], mk[1])
         rec["bwd_ms"] = _between(mk[1], mk[2])
         rec["opt_ms"] = _between(mk[2], mk[3])
-        rec["zero_grad_leaves"] = int((gm == 0).sum())
     for i, r in enumerate(recs):
-        log(f"[{tag}] step {i}: loss {r['loss']:.4f}, grad norm "
-            f"{r['grad_norm']:.4f}; forward {r['fwd_ms']:.1f} ms, backward "
-            f"{r['bwd_ms']:.1f} ms, optimizer {r['opt_ms']:.1f} ms, wall "
-            f"{r['wall_ms']:.1f} ms"
-            + (" (profiled)" if prof is not None and i == len(recs) - 1
-               else ""))
+        kind = (part if part != "graph" else
+                "graph, its capture" if i == 0 else "graph, replay")
+        parts = (f"forward {r['fwd_ms']:.1f} ms, backward {r['bwd_ms']:.1f} "
+                 f"ms, optimizer {r['opt_ms']:.1f} ms, " if "fwd_ms" in r
+                 else "")
+        log(f"[{tag}] step {first + i}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.4f}; {parts}wall {r['wall_ms']:.1f} ms, "
+            f"device span {r['span_ms']:.1f} ms ({kind})"
+            + (" (profiled)" if profile_last and i == len(recs) - 1 else ""))
     bad = [i for i, r in enumerate(recs)
            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]))]
     if bad:
-        fail(f"{tag}: non-finite loss or grad norm at steps {bad}")
+        fail(f"{tag}: non-finite loss or grad norm at {part} steps {bad}")
     zero = [(i, r["zero_grad_leaves"]) for i, r in enumerate(recs)
             if r["zero_grad_leaves"]]
     if zero:
-        fail(f"{tag}: parameter leaves with an all-zero gradient (step, "
-             f"count): {zero}")
-    return recs, counts, prof
+        fail(f"{tag}: parameter leaves with an all-zero gradient ({part} "
+             f"run; step, count): {zero}")
+    return run
 
 
-def _summary(tag, recs, counts, prof, tokens, steps_from=1):
-    """Mean forward, backward and optimizer ms and tokens/s over the steps
-    from ``steps_from`` (the first one warms up) that were not profiled."""
-    plain_recs = recs[steps_from:len(recs) - (prof is not None)]
-    mean = {k: sum(r[k] for r in plain_recs) / len(plain_recs)
-            for k in ("fwd_ms", "bwd_ms", "opt_ms", "wall_ms")}
-    n = len(recs)
-    per_step = {k: v / n for k, v in counts.items() if v}
-    last = steps_from + len(plain_recs) - 1
-    log(f"[{tag}] mean of steps {steps_from}-{last}: forward "
-        f"{mean['fwd_ms']:.1f} ms, backward {mean['bwd_ms']:.1f} ms, "
-        f"optimizer {mean['opt_ms']:.1f} ms, wall {mean['wall_ms']:.1f} "
-        f"ms; {tokens / mean['wall_ms'] * 1e3:.0f} tokens/s; kernel launches "
-        f"a step {per_step}; peak memory {_peak() / 2**30:.2f} GiB")
-    if prof is not None:
-        log(f"[{tag}] profiled step: {prof['launches']:.0f} kernel launches, "
-            f"device {prof['dev_ms']:.1f} ms, wall under the profiler "
-            f"{prof['prof_ms']:.1f} ms; device idle share "
-            f"{max(0.0, 1 - prof['dev_ms'] / mean['wall_ms']):.3f} of an "
-            f"unprofiled step")
-    return mean
+def train_run(tag, model, params, batches, remat=TRAIN_REMAT):
+    """AdamW steps through the eager ``make_train_step`` on ``batches``
+    (``run_steps``, forward, backward and optimizer marked). Returns
+    (records, launch counts)."""
+    opt, marks, grad_max = instrument_step(
+        model, make_optimizer(OptimizerConfig(**TRAIN_OPT)))
+    run = run_steps(tag, "eager", make_train_step(model, opt,
+                                                  remat_policy=remat),
+                    params, opt.init(params), batches, grad_max=grad_max,
+                    marks=marks)
+    return run["recs"], run["counts"]
 
 
 def train_batches(model, seq, seeds):
@@ -2749,33 +2772,280 @@ def train_batches(model, seq, seeds):
     return [batch_for_step(model, shape, 0, s, device=DEVICE) for s in seeds]
 
 
+def compiled_step(step):
+    """``step`` through ``training.train_graph`` on the card. A CPU
+    rehearsal of the script (``DEVICE`` "cpu": nothing can be captured
+    there) runs the eager step under the same interface, with empty graph
+    stats."""
+    if DEVICE == "cuda":
+        return compile_train_step(step)
+
+    def eager(params, opt_state, batch):
+        return step(params, opt_state, batch)
+    eager.stats = GraphStats()
+    return eager
+
+
+def grad_probe(opt, params):
+    """``opt`` whose update first writes each clipped gradient leaf's
+    largest |entry| into one fixed buffer (returned): a captured step
+    rewrites it at every replay."""
+    buf = torch.zeros(len(tree_leaves(params)), device=DEVICE)
+
+    def update(grads, state, params, *shardings):
+        buf.copy_(torch.stack([g.abs().amax().float()
+                               for g in tree_leaves(grads)]))
+        return opt.update(grads, state, params, *shardings)
+    return Optimizer(opt.init, update), buf
+
+
+def profiled_call(fn):
+    """``fn()`` under the profiler: (its result, {"launches": the host's
+    launch calls, "dev_ms": device time, "prof_ms": wall time under the
+    profiler})."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        out = fn()
+        _sync()
+        wall = time.perf_counter() - t0
+    avg = p.key_averages()
+    return out, {"launches": sum(e.count for e in avg
+                                 if e.key in _LAUNCH_KEYS),
+                 "dev_ms": sum(e.self_device_time_total for e in avg
+                               if str(getattr(e, "device_type", ""))
+                               .endswith("CUDA")) / 1e3,
+                 "prof_ms": wall * 1e3}
+
+
+def graph_train_run(tag, model, params, batches, eager_steps=TRAIN_EAGER,
+                    remat=TRAIN_REMAT):
+    """AdamW steps on ``batches`` (one a step), one training run in two
+    parts (``run_steps``, each part's last step profiled): the first
+    ``eager_steps`` through the eager step (``make_train_step``; forward,
+    backward and optimizer marked), the rest through the compiled step
+    (the first of them its capture, the others replays). Returns (the
+    eager part, the graph part, the graph's stats)."""
+    base = make_optimizer(OptimizerConfig(**TRAIN_OPT))
+    opt, marks, grad_max = instrument_step(model, base)
+    eager = run_steps(tag, "eager", make_train_step(model, opt,
+                                                    remat_policy=remat),
+                      params, opt.init(params), batches[:eager_steps],
+                      grad_max=grad_max, marks=marks, profile_last=True)
+    del model.train_loss            # the graph records no marks
+    probe_opt, probe = grad_probe(base, params)
+    _free()     # the capture stream cannot reuse the eager steps' cache
+    step = compiled_step(make_train_step(model, probe_opt,
+                                         remat_policy=remat))
+    graph = run_steps(tag, "graph", step, *eager["end"],
+                      batches[eager_steps:], probe=probe, profile_last=True,
+                      first=eager_steps)
+    stats = step.stats
+    del step
+    return eager, graph, stats
+
+
+def _per_step(run: dict) -> dict:
+    return {k: v / len(run["recs"]) for k, v in run["counts"].items() if v}
+
+
+def check_graph_launches(tag, eager, graph) -> None:
+    """Each kernel's launches a step through the graph (recorded at
+    capture, added per replay) equal the eager step's."""
+    if _per_step(graph) != _per_step(eager):
+        fail(f"{tag}: kernel launches a step through the graph "
+             f"{_per_step(graph)} against the eager step's "
+             f"{_per_step(eager)}")
+
+
+def train_summary(tag, eager, graph, stats, tokens, timed=slice(1, -1),
+                  note=""):
+    """The eager run against the graph run (``run_steps``), each over its
+    ``timed`` steps (not the first, a warm-up or the capture, nor a
+    profiled one): wall a step, device span between CUDA events, tokens/s;
+    device time from the run's profiled step, else the graph replays'
+    device span (the same kernels), and the idle share 1 - device / wall
+    (unclipped: below 0 where the device time exceeds the wall, noise);
+    host and kernel launches a step; capture, pool and peak memory.
+    Fails if a profiled replay made more than one host launch."""
+    def mean(rs, k):
+        return sum(r[k] for r in rs) / len(rs)
+    span = mean(graph["recs"][timed], "span_ms")
+    walls = {}
+    for name, run in (("eager", eager), ("graph", graph)):
+        rs, prof = run["recs"][timed], run["prof"]
+        w = walls[name] = mean(rs, "wall_ms")
+        dev = prof["dev_ms"] if prof else span
+        marks = (f" (forward {mean(rs, 'fwd_ms'):.1f}, backward "
+                 f"{mean(rs, 'bwd_ms'):.1f}, optimizer "
+                 f"{mean(rs, 'opt_ms'):.1f} ms)" if "fwd_ms" in rs[0] else "")
+        source = (f"profiled step: {prof['launches']:.0f} host launches, "
+                  f"device {dev:.1f} ms" if prof else
+                  f"device {dev:.1f} ms (the graph replays' span)")
+        extra = "" if name == "eager" else (
+            f"; capture {stats.capture_ms:.1f} ms (its eager warm-up's wall "
+            f"{graph['recs'][0]['wall_ms']:.1f} ms), pool "
+            f"{stats.pool_bytes / 2**20:.1f} MiB, {stats.captures} capture, "
+            f"{stats.replays} replays")
+        log(f"[{tag}] {name} step: wall {w:.1f} ms over {len(rs)} steps"
+            f"{marks}, device span {mean(rs, 'span_ms'):.1f} ms (CUDA "
+            f"events), {tokens / w * 1e3:.0f} tokens/s; {source}, idle share "
+            f"{1 - dev / w:.3f}; kernel launches a step {_per_step(run)}; "
+            f"peak memory {run['peak'] / 2**30:.2f} GiB{extra}")
+    log(f"[{tag}] graph / eager: wall a step "
+        f"{walls['graph'] / walls['eager']:.3f}"
+        + (f", device {graph['prof']['dev_ms'] / eager['prof']['dev_ms']:.3f}"
+           if graph["prof"] and eager["prof"] and eager["prof"]["dev_ms"]
+           else "")
+        + (f" (the eager step's recorded peak: {EAGER_PEAK_GIB[tag]} GiB)"
+           if tag in EAGER_PEAK_GIB else "") + note)
+    if DEVICE == "cuda" and graph["prof"] \
+            and graph["prof"]["launches"] != 1:
+        fail(f"{tag}: a replayed step made {graph['prof']['launches']} host "
+             "launches")
+
+
 def phase_train_llama(cfg=dataclasses.replace(ARCHS["llama3-8b"],
                                               num_layers=TRAIN_LAYERS)):
     """(a) llama3-8b, full width, TRAIN_LAYERS layers, bf16, AdamW,
     dots_saveable: TRAIN_STEPS steps on fresh batches, then FIXED_STEPS on
-    one fixed batch whose loss must fall."""
+    one fixed batch whose loss must fall; the first TRAIN_EAGER steps
+    eagerly, the rest through the compiled step. Returns the launch counts
+    of all the steps."""
     _reset_peak()
     model, params = _init(cfg, 18, "train", f"d_ff {cfg.d_ff}, ")
     batches = train_batches(model, TRAIN_SEQ, range(TRAIN_STEPS))
     batches += train_batches(model, TRAIN_SEQ, [TRAIN_STEPS]) * FIXED_STEPS
-    recs, counts, prof = train_run("train", model, params, batches,
-                                   profile_last=True)
+    eager, graph, stats = graph_train_run("train", model, params, batches)
     n_attn = sum(ld.mixer == "attn" for ld in model.impl.pattern) \
         * model.repeats
-    per_step = counts["flash_attention"] / len(recs)
-    log(f"[train] flash_attention launches a step {per_step:.0f} for "
-        f"{n_attn} attention layers (forward, and again in the recompute)")
-    if DEVICE == "cuda" and per_step < n_attn:
-        fail(f"train: flash launched {per_step} times a step for {n_attn} "
-             "attention layers")
-    fixed = [r["loss"] for r in recs[TRAIN_STEPS:]]
+    per_step = _per_step(graph).get("flash_attention", 0)
+    log(f"[train] flash_attention launches a step {per_step:.0f} through "
+        f"the graph ({_per_step(eager).get('flash_attention', 0):.0f} "
+        f"eager) for {n_attn} attention layers (forward, and again in the "
+        "recompute)")
+    if DEVICE == "cuda":
+        if per_step < n_attn:
+            fail(f"train: flash launched {per_step} times a step for "
+                 f"{n_attn} attention layers")
+        check_graph_launches("train", eager, graph)
+    fixed = [r["loss"] for r in (eager["recs"] + graph["recs"])[TRAIN_STEPS:]]
     log(f"[train] fixed batch: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
     if not fixed[-1] < fixed[0]:
         fail(f"train: the fixed batch's loss did not fall: {fixed}")
-    _summary("train", recs, counts, prof, TRAIN_BATCH * TRAIN_SEQ)
-    del params, model, batches
+    train_summary("train", eager, graph, stats, TRAIN_BATCH * TRAIN_SEQ)
+    del params, model, batches, eager["end"], graph["end"]
     _free()
-    return counts
+    return {k: n + graph["counts"][k] for k, n in eager["counts"].items()}
+
+
+def _bits_equal(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def differences(run, ref) -> dict:
+    """{index: relative error} of each quantity of ``run`` that is not
+    bitwise equal to the same quantity of ``ref``; each is (numbers,
+    tensors), the tensors indexed after the numbers. The error is |x - r|
+    / |r| (the Frobenius norm for tensors; at least 1e-30)."""
+    (nums, leaves), (ref_nums, ref_leaves) = run, ref
+    out = {i: max(abs(x - r) / max(abs(r), 1e-30), 1e-30)
+           for i, (x, r) in enumerate(zip(nums, ref_nums)) if x != r}
+    for i, (a, b) in enumerate(zip(leaves, ref_leaves), len(nums)):
+        if not _bits_equal(a, b):
+            a, b = a.float(), b.float()
+            out[i] = max(((a - b).norm() / b.norm().clamp_min(1e-30))
+                         .item(), 1e-30)
+    return out
+
+
+def identity_run(tag, model, params, batches, remat):
+    """(e) One start state (AdamW's, TRAIN_OPT) through ``batches`` three
+    times (``run_steps``, every gradient leaf probed), restored in place
+    from a copy on the device before each run: the eager step ("eager"),
+    the eager step again ("eager again") and the compiled step ("graph").
+    Returns each run (its "diffs": ``differences`` from the first run in
+    the losses, the grad norms, and every parameter leaf and optimizer leaf
+    after the last step, named by ``names``), the names, the graph's stats
+    and the bytes of one copy of the state."""
+    opt = make_optimizer(OptimizerConfig(**TRAIN_OPT))
+    probe_opt, probe = grad_probe(opt, params)
+    state = opt.init(params)
+    live = tree_leaves((params, state))
+    start = [x.clone() for x in live]
+    n = len(batches)
+    names = ([f"loss {i}" for i in range(n)]
+             + [f"grad norm {i}" for i in range(n)]
+             + [p for p, _ in _leaf_paths({"params": params, "opt": state})])
+    eager = make_train_step(model, probe_opt, remat_policy=remat)
+    runs, ref, stats = {}, None, None
+    for part in ("eager", "eager again", "graph"):
+        for x, s in zip(live, start):
+            x.copy_(s)
+        _free()
+        step = compiled_step(eager) if part == "graph" else eager
+        run = runs[part] = run_steps(tag, part, step, params, state, batches,
+                                     probe=probe)
+        recs = run["recs"]
+        got = ([r["loss"] for r in recs] + [r["grad_norm"] for r in recs],
+               tree_leaves(run.pop("end")))
+        if ref is None:
+            ref = (got[0], [x.clone() for x in got[1]])
+        else:
+            run["diffs"] = differences(got, ref)
+        if part == "graph":
+            stats = step.stats
+        del step, got
+    state_bytes = sum(x.numel() * x.element_size() for x in live)
+    del ref, start, live
+    _free()
+    log(f"[{tag}] identity runs: {n} steps each, eager, eager again and "
+        "through the graph, from one start state restored in place")
+    return runs, names, stats, state_bytes
+
+
+def check_identity(tag, runs, names, model, params, batch, remat) -> None:
+    """Two eager runs and the graph run bitwise equal in every quantity.
+    Where the two eager runs differ, the gradients of two eager backward
+    passes on one state and batch name the leaves that differ, and the
+    check fails: a step that is not deterministic has no bitwise
+    reference."""
+    again, graph = runs["eager again"]["diffs"], runs["graph"]["diffs"]
+
+    def worst(d):
+        i = max(d, key=d.get)
+        return f"{d[i]:.3g} at {names[i]}"
+    if again:
+        grads = [loss_and_grads(model, params, batch, remat)[1]
+                 for _ in range(2)]
+        paths = [p for p, _ in _leaf_paths(params)]
+        differ = [p for p, a, b in zip(paths, *grads)
+                  if not _bits_equal(a, b)]
+        fail(f"{tag}: two eager runs differ in {len(again)} of {len(names)} "
+             f"quantities, worst {worst(again)}; two eager backward passes "
+             f"on one state and batch give different gradients for "
+             f"{differ or 'no leaf'}")
+    log(f"[{tag}] identity: two eager runs bitwise equal in all "
+        f"{len(names)} quantities (losses, grad norms, every parameter leaf "
+        "and optimizer moment)")
+    if graph:
+        fail(f"{tag}: the graph run differs from the eager run in "
+             f"{len(graph)} of {len(names)} quantities, worst {worst(graph)}")
+    log(f"[{tag}] identity: the graph run bitwise equal to the eager run in "
+        f"all {len(names)}")
+
+
+def identity_summary(tag, runs, stats, state_bytes, tokens) -> None:
+    """``train_summary`` of the second eager run (warm) against the graph
+    run, steps 1 on; the peaks hold two copies of the state besides the
+    step's own."""
+    train_summary(tag, runs["eager again"], runs["graph"], stats, tokens,
+                  timed=slice(1, None),
+                  note=f"; each peak {2 * state_bytes / 2**30:.2f} GiB above "
+                  "the step's own for the two copies of the state that the "
+                  "identity check holds; one host launch a replay "
+                  "(profiled in (a) and by tools/profile_torch_train.py)")
 
 
 def loss_and_grads(model, params, batch, remat=TRAIN_REMAT):
@@ -2836,30 +3106,60 @@ def _leaf_paths(tree, prefix=""):
 
 
 def phase_train_xlstm(cfg=ARCHS["xlstm-1.3b"]):
-    """(c) xlstm-1.3b at full width and depth, bf16, AdamW, no remat:
-    XLSTM_TRAIN_STEPS steps on one fixed 512-token batch (the loss must
-    fall), ssd_scan in every mLSTM forward."""
-    _reset_peak()
+    """(c) xlstm-1.3b at full width and depth, bf16, AdamW, no remat (the
+    sLSTM's time chunks still checkpoint, "full"): XLSTM_TRAIN_STEPS steps
+    on one fixed 512-token batch from one start state, eagerly, eagerly
+    again and through the compiled step (``identity_run``; (e) holds the
+    graph run to the eager runs). Every run fails on a leaf with an
+    all-zero gradient; the graph run's loss must fall and ``ssd_scan`` run
+    in every mLSTM forward of both steps. Returns the graph run's launch
+    counts."""
     model, params = _init(cfg, 20, "train-xlstm", "")
     batches = train_batches(model, XLSTM_TRAIN_SEQ, [0]) * XLSTM_TRAIN_STEPS
-    recs, counts, prof = train_run("train-xlstm", model, params, batches,
-                                   remat=XLSTM_TRAIN_REMAT)
-    if not recs[-1]["loss"] < recs[0]["loss"]:
-        fail(f"train-xlstm: the loss did not fall: "
-             f"{[r['loss'] for r in recs]}")
+    runs, names, stats, state_bytes = identity_run(
+        "train-xlstm", model, params, batches, XLSTM_TRAIN_REMAT)
+    eager, graph = runs["eager"], runs["graph"]
+    losses = [r["loss"] for r in graph["recs"]]
+    if not losses[-1] < losses[0]:
+        fail(f"train-xlstm: the loss did not fall: {losses}")
     n_mlstm = sum(ld.mixer == "mlstm" for ld in model.impl.pattern) \
         * model.repeats
-    per_step = counts["ssd_scan"] / len(recs)
+    per_step = _per_step(graph).get("ssd_scan", 0)
     log(f"[train-xlstm] ssd_scan launches a step {per_step:.0f} for "
-        f"{n_mlstm} mLSTM layers")
-    if DEVICE == "cuda" and per_step < n_mlstm:
-        fail(f"train-xlstm: ssd_scan launched {per_step} times a step for "
-             f"{n_mlstm} mLSTM layers")
-    _summary("train-xlstm", recs, counts, prof,
-             TRAIN_BATCH * XLSTM_TRAIN_SEQ)
+        f"{n_mlstm} mLSTM layers through the graph "
+        f"({_per_step(eager).get('ssd_scan', 0):.0f} eager)")
+    if DEVICE == "cuda":
+        if per_step < n_mlstm:
+            fail(f"train-xlstm: ssd_scan launched {per_step} times a step "
+                 f"for {n_mlstm} mLSTM layers")
+        check_graph_launches("train-xlstm", eager, graph)
+    identity_summary("train-xlstm", runs, stats, state_bytes,
+                     TRAIN_BATCH * XLSTM_TRAIN_SEQ)
+    check_identity("train-xlstm", runs, names, model, params, batches[0],
+                   XLSTM_TRAIN_REMAT)
     del params, model, batches
     _free()
-    return counts
+    return graph["counts"]
+
+
+def phase_train_identity(cfg=dataclasses.replace(ARCHS["llama3-8b"],
+                                                 num_layers=IDENTITY_LAYERS)):
+    """(e) llama3-8b at full width cut to IDENTITY_LAYERS layers, bf16,
+    dots_saveable: IDENTITY_STEPS fresh batches of TRAIN_SEQ tokens from
+    one start state, eagerly, eagerly again and through the compiled step,
+    held bitwise (``check_identity``); the xlstm-1.3b run is (c)'s."""
+    model, params = _init(cfg, 21, "train-identity", f"d_ff {cfg.d_ff}, ")
+    batches = train_batches(model, TRAIN_SEQ, range(IDENTITY_STEPS))
+    runs, names, stats, state_bytes = identity_run(
+        "train-identity", model, params, batches, TRAIN_REMAT)
+    if DEVICE == "cuda":
+        check_graph_launches("train-identity", runs["eager"], runs["graph"])
+    identity_summary("train-identity", runs, stats, state_bytes,
+                     TRAIN_BATCH * TRAIN_SEQ)
+    check_identity("train-identity", runs, names, model, params, batches[0],
+                   TRAIN_REMAT)
+    del params, model, batches
+    _free()
 
 
 def _flash_train_inputs(gen, s, hq, hkv, d, dt=torch.bfloat16):
@@ -2958,7 +3258,7 @@ def time_train_flash(gen, rows, tag: str, shape, label: str,
 
 
 def time_train_kernels(gen, rows):
-    """(e) at (a)'s attention shape: the kernel with and without its lse
+    """(f) at (a)'s attention shape: the kernel with and without its lse
     output (graph replay) beside one causal SDPA forward; the plain
     forward; the plain backward (``flash_bwd``) beside one causal SDPA
     forward plus backward (eager calls, CUDA events); then the ssd
@@ -3004,9 +3304,9 @@ def time_train_kernels(gen, rows):
 
 
 def phase_train(shape_rows):
-    """Phase 14: (a)-(e), each part's seconds logged. Returns the launch
-    counts of (a) and (c)'s training runs; appends flash's training-shape
-    row to ``shape_rows``."""
+    """Phase 14: (a)-(f), each part's seconds logged. Returns the launch
+    counts of (a)'s training run and (c)'s graph run; appends flash's
+    training-shape row to ``shape_rows``."""
     gen = torch.Generator(device=DEVICE).manual_seed(14)
     counts = Counter()
     for part, run in (
@@ -3014,7 +3314,8 @@ def phase_train(shape_rows):
             ("b", check_train_against_cpu),
             ("c", lambda: counts.update(phase_train_xlstm())),
             ("d", lambda: check_train_kernels(gen)),
-            ("e", lambda: time_train_kernels(gen, shape_rows))):
+            ("e", phase_train_identity),
+            ("f", lambda: time_train_kernels(gen, shape_rows))):
         t0 = time.perf_counter()
         run()
         _free()
@@ -3292,7 +3593,7 @@ def mesh_reference(ref_dir: str) -> tuple:
     model, params = _init(sp["cfg"], sp["seed"], "mesh-ref",
                           f"d_ff {sp['cfg'].d_ff}, ")
     batches = _mesh_batches(model, sp)
-    recs, counts, _ = train_run("mesh-ref", model, params, batches)
+    recs, counts = train_run("mesh-ref", model, params, batches)
     log(f"[mesh-ref] peak memory {_peak() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
     checkpoint.save(ref_dir, sp["steps"], params)
@@ -3892,7 +4193,7 @@ def moe_ssm_reference(name: str, ref_dir: str, sp: dict) -> tuple:
         log(f"[{tag}] step 0's first MoE layer: of {n} "
             f"assignments the mesh's groups drop {mesh_drops}, one group of "
             f"all {b * s} tokens (one rank's) {one_drops}")
-    recs, counts, _ = train_run(tag, model, params,
+    recs, counts = train_run(tag, model, params,
                                 batches, remat=remat)
     log(f"[{tag}] peak memory {_peak() / 2**30:.2f} GiB")
     checkpoint.save(os.path.join(ref_dir, name), sp["steps"], params)
@@ -4572,7 +4873,10 @@ def _twin_summary(name: str, res: dict) -> str:
     if name == "train_100m_torch":
         return (f"loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f} "
                 f"over {len(res['losses'])} steps in "
-                f"{res['seconds']:.1f} s")
+                f"{res['seconds']:.1f} s, "
+                f"{res['seconds'] / len(res['losses']) * 1e3:.1f} ms a step "
+                "through the compiled step, its capture included (the "
+                "eager step's: 86-135 ms, PERF.md)")
     return json.dumps(res)
 
 

@@ -1,7 +1,8 @@
 """End-to-end training on the PyTorch port: a ~100M-parameter
 llama-family model trained on synthetic data (the port's
 ``training.batch_for_step``); on the card the attention forward is the
-hand-written flash kernel.
+hand-written flash kernel, and the whole step runs as one CUDA graph
+(``training.train_graph``, the counterpart of the reference's ``jax.jit``).
 
   PYTHONPATH=src python examples/train_100m_torch.py --steps 200  # card
   PYTHONPATH=src python examples/train_100m_torch.py --device cpu --steps 8
@@ -21,6 +22,7 @@ from repro_torch.models import build_model
 from repro_torch.training import (
     OptimizerConfig, batch_for_step, make_optimizer, make_train_step,
 )
+from repro_torch.training.train_graph import compile_train_step
 
 
 def config_100m():
@@ -49,6 +51,8 @@ def main(argv=None) -> dict:
         name="adamw", learning_rate=3e-4, warmup_steps=20))
     opt_state = opt.init(params)
     step_fn = make_train_step(model, opt, remat_policy="none")
+    if torch.device(args.device).type == "cuda":
+        step_fn = compile_train_step(step_fn, args.device)
     shape = ShapeConfig("ex", args.seq, args.batch, "train")
 
     t0 = time.time()

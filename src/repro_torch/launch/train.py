@@ -5,8 +5,13 @@
 
 Runs on the card (``--device cuda``, the default; the flash and ssd_scan
 kernels run every attention and SSD forward) or, with ``--device cpu``, on
-the plain PyTorch versions. ``--scaled`` takes the reduced config of the
-same family (``--layers`` sets its depth); without it the published
+the plain PyTorch versions. On one CUDA device the step is compiled, as the
+reference jits it: captured as a CUDA graph and replayed
+(``training.train_graph``); ``--graphs off`` runs it eagerly. On the CPU
+or over a mesh the step runs eagerly, and ``--graphs on`` raises there.
+The first line printed names the step that runs. ``--scaled`` takes the
+reduced config of the same family (``--layers`` sets its depth); without
+it the published
 config runs, cut to ``--layers`` layers when given (the reference's
 launcher reads ``--layers`` only with ``--scaled``; the port cuts the
 published width too, so that a full-width model fits one card). Fault tolerance:
@@ -47,6 +52,7 @@ from repro_torch.training import (
     OptimizerConfig, batch_for_step, checkpoint, make_optimizer,
     make_train_step,
 )
+from repro_torch.training.train_graph import compile_train_step
 
 
 def main(argv=None):
@@ -73,6 +79,9 @@ def main(argv=None):
                     help="overfit one batch (loss must drop; smoke check)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
+    ap.add_argument("--graphs", choices=["on", "off"], default=None,
+                    help="the compiled step (CUDA graphs); default: on for "
+                    "one CUDA device, off on the CPU or over a mesh")
     args = ap.parse_args(argv)
 
     dev = args.device
@@ -109,6 +118,21 @@ def main(argv=None):
         step_fn = make_train_step(model, opt, remat_policy=args.remat,
                                   microbatches=args.microbatches,
                                   batch_shardings=b_sh)
+        graphs = args.graphs
+        if graphs is None:
+            graphs = "on" if mesh is None and torch.device(dev).type \
+                == "cuda" else "off"
+        if graphs == "on":      # raises on the CPU and over a mesh
+            step_fn = compile_train_step(step_fn, dev)
+            what = "compiled (a CUDA graph, replayed)"
+        elif args.graphs == "off":
+            what = "eager (--graphs off)"
+        elif mesh is not None:
+            what = f"eager (a mesh of {world} ranks)"
+        else:
+            what = f"eager (--device {dev})"
+        if show:
+            print(f"train step: {what}")
 
         def batch_fn(step):
             s = 0 if args.fixed_batch else step

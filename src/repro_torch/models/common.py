@@ -150,7 +150,10 @@ def remat(fn: Callable, policy: Optional[str]) -> Callable:
     rest; "dots_saveable" also keeps the matrix products' outputs. A call
     whose tensor arguments need no gradient (inference) runs ``fn`` as it
     is. A custom autograd Function inside ``fn`` runs its forward again in
-    the recompute (the flash and SSD kernels launch again there)."""
+    the recompute (the flash and SSD kernels launch again there). Nothing
+    in a step draws a random number, so the checkpoints keep no RNG state
+    (``preserve_rng_state=False``: reading every device's generator state
+    on each call is a host call that a CUDA graph capture may refuse)."""
     if policy in (None, "none"):
         return fn
     if policy == "full":
@@ -168,6 +171,8 @@ def remat(fn: Callable, policy: Optional[str]) -> Callable:
                 for t in tree_leaves(args)):
             return fn(*args)
         if ctx_fn is None:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx_fn)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=ctx_fn)
     return wrapped

@@ -42,15 +42,13 @@ step.
 from __future__ import annotations
 
 import dataclasses
-import gc
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.transfer_engine import StreamingFetch, make_fetch
-from repro_torch.kernels import WRAPPERS, launch_counts
+from repro_torch.kernels.graphs import GraphStats, add_launches, capture
 from repro_torch.models.common import tree_leaves
 
 
@@ -195,36 +193,11 @@ class DecodeGraph:
         cur.wait_stream(self.stream)
         warm_bytes = getattr(self.fetch, "h2d_bytes", 0)
         out = choices.cpu().numpy()
-        before = launch_counts()
-        t0 = time.perf_counter()
-        # a CUDA graph that the garbage collector destroys mid-capture (one
-        # of an engine dropped in a reference cycle) frees its pool there,
-        # which invalidates the capture: collect first, and not during it
-        gc.collect()
-        # the capture empties the allocator's cache first; empty it here so
-        # the reserved bytes' growth is the graph's pool alone
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, stream=self.stream):
-                self.logits, self.choices = self._body(t)
-        except Exception as e:
-            raise RuntimeError(
+        (self.logits, self.choices), self.capture_ms, self.pool_bytes, \
+            self.launches = capture(
+                self.graph, self.stream, self.device, lambda: self._body(t),
                 f"decode graph capture failed for tenant {self.name} "
-                f"(key {self.key.shape}): {e}") from e
-        finally:
-            if collecting:
-                gc.enable()
-            after = launch_counts()
-            for name, w in WRAPPERS.items():   # capture launched nothing
-                w.launches = before[name]
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) \
-            - reserved
-        self.launches = {n: after[n] - before[n] for n in before
-                         if after[n] != before[n]}
+                f"(key {self.key.shape})")
         self.h2d_bytes = getattr(self.fetch, "h2d_bytes", 0)
         return logits, out, warm_bytes
 
@@ -238,18 +211,8 @@ class DecodeGraph:
             raise RuntimeError(
                 f"decode graph replay failed for tenant {self.name} "
                 f"(key {self.key.shape}): {e}") from e
-        for name, n in self.launches.items():
-            WRAPPERS[name].launches += n
+        add_launches(self.launches)
         return self.logits, out
-
-
-@dataclasses.dataclass
-class GraphStats:
-    captures: int = 0
-    replays: int = 0
-    dropped: int = 0
-    capture_ms: float = 0.0
-    pool_bytes: int = 0         # reserved by the live graphs' captures
 
 
 class DecodeGraphs:

@@ -139,4 +139,8 @@ def make_train_step(model: Model, opt: Optimizer, *,
                                        params, *extra)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
+    # what ``training.train_graph`` keys a captured step by, and refuses
+    train_step.microbatches = microbatches
+    train_step.remat_policy = remat_policy
+    train_step.mesh = mesh
     return train_step

@@ -466,6 +466,35 @@ def test_train_xlstm_phase_runs(train_on_cpu, capsys):
     assert "ssd_scan launches a step 0 for 7 mLSTM layers" in out
 
 
+def test_train_identity_phase_runs(train_on_cpu, capsys):
+    chip_smoke.phase_train_identity(train_on_cpu)
+    out = capsys.readouterr().out
+    assert "[train-identity] identity: two eager runs bitwise equal" in out
+    assert "[train-identity] identity: the graph run bitwise equal" in out
+
+
+def test_train_identity_sees_a_graph_run_that_differs(train_on_cpu,
+                                                      monkeypatch):
+    """A compiled step whose run moves one weight by a bf16 ulp fails (e)
+    (the eager runs agree bit for bit)."""
+    compiled = chip_smoke.compiled_step
+
+    def off_by_an_ulp(step):
+        inner = compiled(step)
+
+        def stepped(params, state, batch):
+            params, state, m = inner(params, state, batch)
+            w = params["final_norm"]
+            w.copy_(torch.nextafter(w, w + 1))
+            return params, state, m
+        stepped.stats = inner.stats
+        return stepped
+    monkeypatch.setattr(chip_smoke, "compiled_step", off_by_an_ulp)
+    with pytest.raises(SystemExit, match="the graph run differs from the "
+                       "eager run in 1 of"):
+        chip_smoke.phase_train_identity(train_on_cpu)
+
+
 def _detached_bf16_attention(monkeypatch):
     """Attention whose bf16 output carries no grad_fn (what a kernel output
     outside the autograd Function would be); f32 keeps its gradient."""
@@ -482,6 +511,25 @@ def test_train_phase_sees_a_missing_gradient(train_on_cpu, monkeypatch):
     _detached_bf16_attention(monkeypatch)
     with pytest.raises(SystemExit, match="all-zero gradient"):
         chip_smoke.phase_train_llama(train_on_cpu)
+
+
+def test_train_xlstm_phase_sees_a_missing_gradient(train_on_cpu,
+                                                   monkeypatch):
+    """(c) fails when the mLSTM's bf16 scan output carries no grad_fn (the
+    eager runs, which the graph is held to, would lose the same
+    gradients)."""
+    from repro_torch.models import blocks
+    real = blocks.ssd_scan
+
+    def scan(q, *args, **kw):
+        y, final = real(q, *args, **kw)
+        return (y.detach() if q.dtype == torch.bfloat16 else y), final
+    monkeypatch.setattr(blocks, "ssd_scan", scan)
+    cfg = dataclasses.replace(scaled_config(ARCHS["xlstm-1.3b"],
+                                            num_layers=8), dtype="bfloat16")
+    with pytest.raises(SystemExit, match="train-xlstm: parameter leaves "
+                       "with an all-zero gradient"):
+        chip_smoke.phase_train_xlstm(cfg)
 
 
 def test_train_check_sees_a_missing_gradient(train_on_cpu, monkeypatch):
