@@ -116,10 +116,11 @@ no CUDA device or any phase fails. Phases:
    idle share of an eager step and of a replay, capture ms, the graph's
    pool, tokens/s, peak memory, launches a step (flash runs each
    attention forward, again in the recompute; the graph's equal the eager
-   step's). (b) the same width cut to 2 layers at 512 tokens: the loss and
+   step's). (b) the same width cut to 2 layers at 256 tokens: the loss and
    each leaf's gradient on the card (bf16, kernels) against the same
    weights in f32 on the CPU (plain versions). (c) xlstm-1.3b at full
-   width and depth (48 layers), bf16, AdamW, no remat, 3 steps on one
+   width cut to 16 of its 48 layers (2 of its 6 repeats), bf16, AdamW, no
+   remat, 3 steps on one
    512-token batch from one start state: eagerly, again, and through the
    compiled step; in each run every parameter leaf with a nonzero
    gradient at every step, as in (a); the graph run's loss must fall,
@@ -151,25 +152,25 @@ no CUDA device or any phase fails. Phases:
    against the same step on one rank: the output and the ranks' cache
    slices put together. Each part's seconds beside the card's name and
    power limit.
-16. mesh training: llama3-8b at full width cut to 4 layers, bf16, AdamW,
-   3 steps of 2 x 2048 tokens on one rank, then on a (2, 2) mesh of 4
+16. mesh training: llama3-8b at full width cut to 2 layers, bf16, AdamW,
+   2 steps of 2 x 2048 tokens on one rank, then on a (2, 2) mesh of 4
    gloo ranks sharing the card, held to it step by step and leaf by leaf
    (values and updates); the state moved to (4, 1) and back, a mesh
    checkpoint restored onto (4, 1); the launcher with ``--mesh host``.
 17. mesh training of the MoE and SSM stacks on the same mesh, each held
-   to one rank: moonshot-v1-16b-a3b (2 of 48 layers: experts over
+   to one rank: moonshot-v1-16b-a3b (1 of 48 layers: experts over
    "model", one MoE group per data rank), jamba-v0.1-52b's layer 0
    (Mamba heads-parallel) and xlstm-1.3b (8 of 48 layers: mLSTM and
    sLSTM heads-parallel). (a) one layer of each kind on the mesh against
    one rank (row by row), the MoE's slot/disp bitwise against one rank's
    route on each group's tokens, at the training batch and at a
    decode-scale one (one group over both data ranks: the count
-   exchange); (b) 3 steps against one rank (loss, grad norm, leaves and
+   exchange); (b) 2 steps against one rank (loss, grad norm, leaves and
    their updates); (c) step times (forward, backward, optimizer),
    collectives by kind, peak memory and flash/ssd_scan launches a rank.
    Phase 2 holds flash and ssd_scan at the ranks' shapes.
 18. mesh training of the enc-dec and VLM configs on the same mesh, each
-   held to one rank as in phase 17: whisper-medium (4 + 4 of its 24 + 24
+   held to one rank as in phase 17: whisper-medium (2 + 2 of its 24 + 24
    layers; 2 rows of 4096 frames, split over "model" as the input spec's
    "seq_cp" places them, and 448 tokens; its odd vocabulary stays whole)
    and llava-next-34b (1 of 60 layers; 2 x 4096 positions, 2880 of them
@@ -205,6 +206,10 @@ no CUDA device or any phase fails. Phases:
    the prefill's logits row by row and 4 greedy decode tokens against one
    rank on the same weights, and one AdamW step: its loss and each leaf's
    update against one rank's.
+Phase 20 runs before 16-19 and 21, which share one spawn of 4 ranks
+(``run_mesh_jobs``): each runs its one-rank work, then the ranks run the
+five phases' rank work in turn, then each phase reads and checks theirs.
+
 22. the kernels line (JSON; launches summed over phases 3-21; each kernel's
    ``shapes`` lists phase 2's timed shape rows and phases 14, 16 and 19's
    flash rows) and, last, the result line (JSON).
@@ -226,6 +231,16 @@ from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+if __name__ == "__main__":
+    # where the installed packages ship no bytecode and the environment
+    # says not to write it, every process (this one, each spawned rank)
+    # compiles torch's sources anew. This run and its children keep the
+    # bytecode in the checkout's build directory instead.
+    PYCACHE = os.path.join(HERE, "build", "pycache")
+    sys.pycache_prefix = PYCACHE
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -1240,7 +1255,9 @@ def _drive(eng, trace, profile_fn=None):
     its first token (admission and prefill), then the decode-only rest in
     one call; the two are timed apart. With ``profile_fn``, the first
     decode steps go to it (a function of a one-step callable) before the
-    rest is timed, and its result comes back too."""
+    rest is timed, and its result comes back too. Returns (admit+prefill
+    s, decode s, decoded tokens, the profile, the kernels' launches in the
+    admit+prefill steps)."""
     eng.submit(trace)
     _sync()
     t0 = time.perf_counter()
@@ -1250,6 +1267,7 @@ def _drive(eng, trace, profile_fn=None):
             eng.run(max_steps=eng.step_idx + 1)
         _sync()
         t1 = time.perf_counter()
+        pre_launches = kernels.launch_counts()
         prof = profile_fn(lambda: eng.run(max_steps=eng.step_idx + 1)) \
             if profile_fn else None
     before = sum(len(r.generated) for r in trace)
@@ -1259,7 +1277,7 @@ def _drive(eng, trace, profile_fn=None):
     _sync()
     t3 = time.perf_counter()
     return (t1 - t0, t3 - t2, sum(len(r.generated) for r in trace) - before,
-            prof)
+            prof, pre_launches)
 
 
 # ------------------------------------------------ decode graphs vs eager
@@ -1290,19 +1308,55 @@ def run_record(eng, freed) -> dict:
             "page_id_bound": eng.allocator.page_id_bound}
 
 
-def graph_summary(eng) -> dict:
-    """The engine's decode-graph counters summed over its tenants."""
+def graph_summary(eng, kind: str = "decode") -> dict:
+    """The engine's graph counters of ``kind`` (decode, prefill) summed
+    over its tenants."""
     out = Counter()
-    for st in eng.graph_stats().values():
+    for st in eng.graph_stats(kind).values():
         out.update(st)
     return dict(out)
 
 
-def check_graphs(tag, graph, eager, c_graph, c_eager, tok_s) -> None:
+def run_summary(eng, freed, t_pre: float, pre_launches, tok_s: float):
+    """What ``check_graphs`` holds a graph run and its eager run to, and
+    logs: the ``run_record``, both kinds' graph counters, the kept prefill
+    logits, the admit+prefill seconds and launches, the decode tok/s."""
+    return {"record": run_record(eng, freed), "graphs": graph_summary(eng),
+            "prefill": graph_summary(eng, "prefill"),
+            "logits": eng.prefill_logits, "t_pre": t_pre,
+            "pre_launches": pre_launches, "tok_s": tok_s}
+
+
+def _prefill_line(run) -> str:
+    gs = run["prefill"]
+    return (f"admit+prefill {run['t_pre']:.3f} s, launches "
+            f"{run['pre_launches']}, prefill graphs {gs.get('captures', 0)} "
+            f"captures ({gs.get('capture_ms', 0.0):.1f} ms), "
+            f"{gs.get('replays', 0)} replays, {gs.get('dropped', 0)} dropped, "
+            f"pool {gs.get('pool_bytes', 0) / 2**20:.1f} MiB")
+
+
+def differing_logits(graph, eager) -> list:
+    """The requests whose kept prefill logits differ in any bit between two
+    runs, with max |d| (a request kept by one run only counts too)."""
+    a, b = graph["logits"], eager["logits"]
+    return sorted(
+        (rid, float("inf") if rid not in b or a[rid].shape != b[rid].shape
+         else (a[rid] - b[rid]).abs().max().item())
+        for rid in set(a) | set(b)
+        if rid not in a or rid not in b or not _bits_equal(a[rid], b[rid]))
+
+
+def check_graphs(tag, graph, eager, c_graph, c_eager, tok_s,
+                 prefill: bool = False) -> None:
     """The graph run against the eager run of the same trace: identical
     records and launches (``run_record``); the graphs replayed. Logs the
     captures, replays, capture ms, the graph pools' bytes and both decode
-    rates (``tok_s``: graph, eager)."""
+    rates (``tok_s``: graph, eager). ``prefill``: the eager run also
+    prefilled eagerly; the graph run's prefill must have replayed its
+    graphs, and every request's kept prefill logits must be bitwise the
+    eager run's (both runs' admit+prefill seconds, launches and prefill
+    graph counters are logged)."""
     gs = graph["graphs"]
     log(f"[{tag}] decode graphs: {gs.get('captures', 0)} captures "
         f"({gs.get('capture_ms', 0.0):.1f} ms), {gs.get('replays', 0)} "
@@ -1317,13 +1371,28 @@ def check_graphs(tag, graph, eager, c_graph, c_eager, tok_s) -> None:
         fail(f"{tag}: launches through graphs {c_graph}, eager {c_eager}")
     if eager["graphs"] or (DEVICE == "cuda" and not gs.get("replays")):
         fail(f"{tag}: graph run {gs}, eager run {eager['graphs']}")
+    if prefill:
+        log(f"[{tag}] graph run: {_prefill_line(graph)}")
+        log(f"[{tag}] eager run: {_prefill_line(eager)}")
+        if eager["prefill"] or (DEVICE == "cuda"
+                                and not graph["prefill"].get("replays")):
+            fail(f"{tag}: prefill graphs in the graph run "
+                 f"{graph['prefill']}, in the eager run {eager['prefill']}")
+        bad = differing_logits(graph, eager)
+        if bad or not graph["logits"]:
+            fail(f"{tag}: prefill logits of the graph run differ from the "
+                 f"eager run's in {len(bad)} of {len(graph['logits'])} "
+                 f"requests (rid, max |d|): {bad}")
     log(f"[{tag}] graph run identical to the eager run: tokens, pages, "
         f"events, metrics, host->device bytes "
-        f"{graph['record']['host_fetch_bytes']}, launches")
+        f"{graph['record']['host_fetch_bytes']}, launches"
+        + (f", prefill logits of {len(graph['logits'])} requests bitwise"
+           if prefill else ""))
 
 
 def serve_once(cfg, params, chunk: int, tag: str = "serve",
-               profile_fn=None, graphs: bool = True):
+               profile_fn=None, graphs: bool = True,
+               prefill_graphs: bool = True):
     name = cfg.name
     eng = ServingEngine(
         {name: TenantConfig(cfg, params, max_batch=8,
@@ -1331,12 +1400,12 @@ def serve_once(cfg, params, chunk: int, tag: str = "serve",
                             paged=True)},
         mode="mirage", base_kv_pages=512, page_size=PAGE,
         prefill_chunk_tokens=chunk, device=DEVICE, keep_prefill_logits=True,
-        decode_graphs=graphs)
+        decode_graphs=graphs, prefill_graphs=prefill_graphs)
     freed = watch_pages(eng)
     trace = tiny_trace([name], n_per_model=8, prompt_len=PROMPT,
                        max_new=NEW, vocab=cfg.vocab_size, seed=0)
     kernels.reset_launch_counts()
-    t_pre, t_dec, dec_tokens, prof = _drive(eng, trace, profile_fn)
+    t_pre, t_dec, dec_tokens, prof, pre = _drive(eng, trace, profile_fn)
     counts = kernels.launch_counts()
     gen = {r.rid: list(r.generated) for r in eng.finished}
     kinds = [k for _, k, _ in eng.events]
@@ -1348,8 +1417,7 @@ def serve_once(cfg, params, chunk: int, tag: str = "serve",
         f"{kinds.count('remap')}; launches {counts}")
     if len(eng.finished) != 8 or any(len(g) != NEW for g in gen.values()):
         fail(f"{tag} chunk={chunk}: not every request made {NEW} tokens")
-    run = {"record": run_record(eng, freed), "graphs": graph_summary(eng),
-           "tok_s": dec_tokens / t_dec}
+    run = run_summary(eng, freed, t_pre, pre, dec_tokens / t_dec)
     return gen, eng.prefill_logits, counts, prof, run
 
 
@@ -1418,9 +1486,16 @@ def phase_serve(cfg=ARCHS["llama3-8b"]):
         f"{cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.3f} B params "
         f"initialised in {time.perf_counter() - t0:.1f} s")
     mono, mono_logits, c_mono, _, run = serve_once(cfg, params, 0)
-    chunked, chunk_logits, c_chunk, _, _ = serve_once(cfg, params,
-                                                      PROMPT // 2)
+    chunked, chunk_logits, c_chunk, _, c_run = serve_once(cfg, params,
+                                                          PROMPT // 2)
     serve_eager(cfg, params, "serve", run, c_mono)
+    # the chunked run again with both switches off: the prefill graphs
+    # (one per chunk length) held to the eager chunks, logits bitwise
+    _, _, c_eager, _, eager = serve_once(
+        cfg, params, PROMPT // 2, "serve-chunked-eager", graphs=False,
+        prefill_graphs=False)
+    check_graphs("serve-chunked", c_run, eager, c_chunk, c_eager,
+                 (c_run["tok_s"], eager["tok_s"]), prefill=True)
     worst, top, same, total = compare_prefills(
         cfg, "serve", mono, mono_logits, chunked, chunk_logits)
     log(f"[serve] prefill logits monolithic vs chunked: max|d|/max|logit| = "
@@ -1620,7 +1695,7 @@ def _decode_step_fn(model, params, state, max_context: int):
 
 
 def _serve_dense(cfg, params, tag, batch, prompt, new, max_context,
-                 graphs: bool = True):
+                 graphs: bool = True, prefill_graphs: bool = True):
     """``batch`` requests of ``prompt`` tokens, ``new`` new tokens each,
     through the engine as one dense tenant with an ample KV budget: every
     request finished with ``new`` tokens, no preemption or remap, every
@@ -1631,12 +1706,13 @@ def _serve_dense(cfg, params, tag, batch, prompt, new, max_context,
         {cfg.name: TenantConfig(cfg, params, max_batch=batch,
                                 max_context=max_context, paged=False)},
         mode="mirage", base_kv_pages=512, page_size=PAGE, device=DEVICE,
-        keep_prefill_logits=True, decode_graphs=graphs)
+        keep_prefill_logits=True, decode_graphs=graphs,
+        prefill_graphs=prefill_graphs)
     freed = watch_pages(eng)
     trace = tiny_trace([cfg.name], n_per_model=batch, prompt_len=prompt,
                        max_new=new, vocab=cfg.vocab_size, seed=0)
     kernels.reset_launch_counts()
-    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
+    t_pre, t_dec, dec_tokens, _, pre = _drive(eng, trace)
     counts = kernels.launch_counts()
     kinds = [k for _, k, _ in eng.events]
     log(f"[{tag}] dense tenant: finished {len(eng.finished)} requests, "
@@ -1654,9 +1730,8 @@ def _serve_dense(cfg, params, tag, batch, prompt, new, max_context,
                 or not a.abs().max() > 0:
             fail(f"{tag}: prefill logits of {rid} are {tuple(a.shape)}, "
                  f"max |logit| {a.abs().max().item()}")
-    return eng, counts, {"record": run_record(eng, freed),
-                         "graphs": graph_summary(eng),
-                         "tok_s": dec_tokens / t_dec}
+    return eng, counts, run_summary(eng, freed, t_pre, pre,
+                                    dec_tokens / t_dec)
 
 
 def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
@@ -1700,9 +1775,10 @@ def phase_xlstm(cfg=ARCHS["xlstm-1.3b"]):
     if not worst <= LOGIT_RTOL:
         fail(f"xlstm: prefill/decode logits differ by {worst} > {LOGIT_RTOL}")
     _, c_eager, eager = _serve_dense(cfg, params, "xlstm-eager", 8, PROMPT,
-                                     NEW, max_context, graphs=False)
+                                     NEW, max_context, graphs=False,
+                                     prefill_graphs=False)
     check_graphs("xlstm", run, eager, counts, c_eager,
-                 (run["tok_s"], eager["tok_s"]))
+                 (run["tok_s"], eager["tok_s"]), prefill=True)
     if DEVICE == "cuda":
         log_profile("xlstm", 8, step_profile(_decode_step_fn(
             model, params, eng.tenants[cfg.name].state, max_context)))
@@ -2028,11 +2104,10 @@ def ring_once(cfg, params, max_context: int, graphs: bool = True):
                        prompt_len=RING_PROMPT, max_new=RING_NEW,
                        vocab=cfg.vocab_size, seed=0)
     kernels.reset_launch_counts()
-    t_pre, t_dec, dec_tokens, _ = _drive(eng, trace)
+    t_pre, t_dec, dec_tokens, _, pre = _drive(eng, trace)
     counts = kernels.launch_counts()
-    return eng, trace, counts, (t_pre, t_dec, dec_tokens), {
-        "record": run_record(eng, freed), "graphs": graph_summary(eng),
-        "tok_s": dec_tokens / t_dec}
+    return eng, trace, counts, (t_pre, t_dec, dec_tokens), run_summary(
+        eng, freed, t_pre, pre, dec_tokens / t_dec)
 
 
 def phase_danube(cfg=ARCHS["h2o-danube-3-4b"]):
@@ -2597,16 +2672,21 @@ TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=10)
 # every product's output, activation and gradient on the card is rounded to
 # it (2^-9 relative each), and the errors add up through the two layers, the
 # 128256-way softmax and the backward, to ~1e-2 of a gradient leaf's norm
-# (and far less of the loss, an average over 512 tokens). A gradient left
-# out (a kernel output without grad_fn) is an error of 1.0.
-CHECK_LAYERS, CHECK_SEQ = 2, 512
+# (and far less of the loss, an average over 256 tokens). A gradient left
+# out (a kernel output without grad_fn) is an error of 1.0. The CPU's f32
+# backward takes most of (b)'s time (~18 s at 512 tokens on an H100 host)
+CHECK_LAYERS, CHECK_SEQ = 2, 256
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 2e-2, 5e-2
-# (c) xlstm-1.3b at full width and depth, one 512-token sequence, without
-# remat (the launcher's default): under dots_saveable the nested
-# checkpoints (per repeat, per layer, per sLSTM chunk) run each sLSTM time
-# loop four times a step (303,701 launches a step on an H100 host, ~18.5 s
-# of host-bound time; PERF.md); tools/profile_torch_train.py profiles
-# either
+# (c) xlstm-1.3b at full width cut to XLSTM_TRAIN_LAYERS of its 48 layers
+# (2 of its 6 repeats: 14 mLSTM and 2 sLSTM; the eager step is host-bound,
+# ~9 s a step at 48 layers on an H100, so the full depth's three runs took
+# ~87 s of the script's limit), one 512-token sequence, without remat (the
+# launcher's default): under dots_saveable the nested checkpoints (per
+# repeat, per layer, per sLSTM chunk) run each sLSTM time loop four times
+# a step (303,701 launches a step at 48 layers on an H100 host, ~18.5 s of
+# host-bound time; PERF.md); tools/profile_torch_train.py profiles either
+# step at any depth
+XLSTM_TRAIN_LAYERS = 16
 XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_REMAT = 512, 3, "none"
 # (a) and (c) run through the compiled step (``training.train_graph``, the
 # counterpart of the reference's ``jax.jit`` of the step). (a): the first
@@ -2617,7 +2697,7 @@ XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_REMAT = 512, 3, "none"
 # from one start state ((e)). The eager step's peaks as PERF.md records
 # them from before the compiled step, printed beside this run's
 TRAIN_EAGER = 3
-EAGER_PEAK_GIB = {"train": 49.88, "train-xlstm": 15.70}
+EAGER_PEAK_GIB = {"train": 49.88}
 # (e) the graph against the eager step: one start state through
 # IDENTITY_STEPS eager steps, again, and through the compiled step; the
 # losses, grad norms, every parameter leaf and every optimizer moment of
@@ -3105,8 +3185,10 @@ def _leaf_paths(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-def phase_train_xlstm(cfg=ARCHS["xlstm-1.3b"]):
-    """(c) xlstm-1.3b at full width and depth, bf16, AdamW, no remat (the
+def phase_train_xlstm(cfg=dataclasses.replace(
+        ARCHS["xlstm-1.3b"], num_layers=XLSTM_TRAIN_LAYERS)):
+    """(c) xlstm-1.3b at full width cut to XLSTM_TRAIN_LAYERS layers, bf16,
+    AdamW, no remat (the
     sLSTM's time chunks still checkpoint, "full"): XLSTM_TRAIN_STEPS steps
     on one fixed 512-token batch from one start state, eagerly, eagerly
     again and through the compiled step (``identity_run``; (e) holds the
@@ -3533,13 +3615,82 @@ def phase_distributed():
     return counts
 
 
+# ------------------------------------------------------- phases 16-19, 21
+# The mesh phases share one spawn of MESH_WORLD ranks. A spawn costs its
+# ranks their start (torch imported anew, the gloo group formed) and
+# their first steps' one-time work (lazy imports, gloo's first
+# transfers): 18-47 s a phase on an H100 host, which five spawns paid five
+# times. Each phase is a job: a generator function of a scratch
+# directory that runs its one-rank work, yields its rank function and
+# arguments, is sent rank 0's seconds in it, then reads the ranks' files
+# and checks them.
+
+
+def run_mesh_jobs(*jobs) -> Counter:
+    """Run ``jobs`` (each called with a directory of its own) with their
+    rank work in one spawn of ``MESH_WORLD`` ranks (``run_rank_jobs``);
+    returns the launch counts they return, summed."""
+    import tempfile
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gens, work = [], []
+        for i, job in enumerate(jobs):
+            d = os.path.join(tmp, f"job{i}")
+            os.makedirs(d)
+            gen = job(d)
+            fn, args = next(gen)
+            gens.append(gen)
+            work.append((fn, args, os.path.join(d, "rank0_s")))
+        t0 = time.perf_counter()
+        spawn_ranks(run_rank_jobs, MESH_WORLD, work)
+        log(f"[mesh-ranks] {len(work)} phase(s) on {MESH_WORLD} ranks: "
+            f"{time.perf_counter() - t0:.1f} s from the spawn to the last "
+            f"rank's exit on {_card()}")
+        for gen, (_, _, secs) in zip(gens, work):
+            with open(secs) as f:
+                rank_s = float(f.read())
+            try:
+                gen.send(rank_s)
+            except StopIteration as stop:
+                counts.update(stop.value)
+            else:
+                raise RuntimeError(f"the mesh job {gen} yields more than once")
+    return counts
+
+
+def run_rank_jobs(rank: int, work) -> None:
+    """One rank of ``run_mesh_jobs``: each job's rank function in turn,
+    the card's cache freed after each; rank 0 writes each one's seconds
+    to the file the job names."""
+    for fn, args, secs in work:
+        t0 = time.perf_counter()
+        fn(rank, *args)
+        _free()
+        if rank == 0:
+            with open(secs, "w") as f:
+                f.write(repr(time.perf_counter() - t0))
+
+
+def _rank_records(pattern: str) -> list:
+    """Each rank's JSON record, from ``pattern`` % rank."""
+    recs = []
+    for r in range(MESH_WORLD):
+        with open(pattern % r) as f:
+            recs.append(json.load(f))
+    return recs
+
+
 # --------------------------------------------------------------- phase 16
 # training over a (data, model) mesh of MESH_WORLD ranks sharing the card
-# over gloo: llama3-8b at full width, MESH_LAYERS of its 32 layers (1.92 B
+# over gloo: llama3-8b at full width, MESH_LAYERS of its 32 layers (1.49 B
 # params), bf16, AdamW (TRAIN_OPT) with dots_saveable, a global batch of
 # MESH_BATCH x MESH_SEQ tokens for MESH_STEPS steps on fresh batches; the
 # same run on one rank is the reference (a)
-MESH_LAYERS, MESH_SEQ, MESH_BATCH, MESH_STEPS = 4, 2048, 2, 3
+# gloo moves ~0.6-0.9 GB/s a rank through host memory, so phases 16-18
+# spend most of their time in it (~475 s of the script's limit at 4
+# layers here and 3 steps everywhere on an H100 host): depth and steps are
+# cut to what the checks need, the widths stay whole
+MESH_LAYERS, MESH_SEQ, MESH_BATCH, MESH_STEPS = 2, 2048, 2, 2
 MESH_WORLD, MESH_LAYOUT, MESH_MOVE = 4, (2, 2), (4, 1)
 MESH_CFG = dataclasses.replace(ARCHS["llama3-8b"], num_layers=MESH_LAYERS)
 # the mesh run sums the same products in other orders (TP's partial sums,
@@ -3557,7 +3708,7 @@ MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-2, 2e-2
 MESH_UPDATE_RTOL = 0.25
 # phase 17: a leaf drawn at zero or at a tenth of the normal scale (the
 # biases and gates, the sLSTM recurrence, the Mamba conv) is mostly its
-# update after 3 steps, so its row check reads the sign of AdamW's ~lr *
+# update after the steps, so its row check reads the sign of AdamW's ~lr *
 # sign(g) steps at gradient entries near zero, noise (the control run
 # prints its size). Such leaves are held row by row at their gradients in
 # (a), where the mesh and one rank see the same input; after the steps,
@@ -3760,31 +3911,29 @@ def mesh_rank(rank: int, sp: dict, ref_dir: str, tmp: str, out: str) -> None:
 
 
 def phase_mesh_train(shape_rows):
-    """Phase 16: (a) one rank, (b)-(d) on ``MESH_WORLD`` ranks sharing the
-    card (``mesh_rank``); the checks, and flash at a rank's shape (shape
+    """Phase 16 on ranks of its own (``mesh_train_job``)."""
+    return run_mesh_jobs(lambda tmp: mesh_train_job(tmp, shape_rows))
+
+
+def mesh_train_job(tmp: str, shape_rows):
+    """Phase 16 as a ``run_mesh_jobs`` job: (a) one rank, (b)-(d) on the
+    ranks (``mesh_rank``); the checks, and flash at a rank's shape (shape
     row 3i). Returns the launch counts of (a) and of every rank's (b) and
     (d)."""
-    import tempfile
     card = _card()
     sp = _mesh_spec()
     cfg = sp["cfg"]
     counts = Counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ref_recs, c = mesh_reference(os.path.join(tmp, "ref"))
-        counts.update(c)
-        log(f"[mesh] part (a) took {time.perf_counter() - t0:.1f} s on "
-            f"{card}")
-        t0 = time.perf_counter()
-        out = os.path.join(tmp, "mesh_rank%d.json")
-        spawn_ranks(mesh_rank, MESH_WORLD, sp, os.path.join(tmp, "ref"),
-                    os.path.join(tmp, "ckpt"), out)
-        recs = []
-        for r in range(MESH_WORLD):
-            with open(out % r) as f:
-                recs.append(json.load(f))
-        log(f"[mesh] parts (b)-(d) on {MESH_WORLD} ranks took "
-            f"{time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    ref_recs, c = mesh_reference(os.path.join(tmp, "ref"))
+    counts.update(c)
+    log(f"[mesh] part (a) took {time.perf_counter() - t0:.1f} s on {card}")
+    out = os.path.join(tmp, "mesh_rank%d.json")
+    rank_s = yield mesh_rank, (sp, os.path.join(tmp, "ref"),
+                               os.path.join(tmp, "ckpt"), out)
+    recs = _rank_records(out)
+    log(f"[mesh] parts (b)-(d) on {MESH_WORLD} ranks took {rank_s:.1f} s "
+        f"on {card}")
     r0 = recs[0]
     for i, (ref, got) in enumerate(zip(ref_recs, r0["steps"])):
         le = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -3879,7 +4028,7 @@ def phase_mesh_train(shape_rows):
 # MESH_WORLD ranks sharing the card (gloo), at full width, bf16, AdamW
 # (TRAIN_OPT), MESH_STEPS steps on fresh batches against the same run on
 # one rank. name -> (config cut in depth, global batch, tokens a row,
-# remat): moonshot-v1-16b-a3b at 2 of 48 layers (1.81 B params; each data
+# remat): moonshot-v1-16b-a3b at 1 of 48 layers (1.24 B params; each data
 # rank's 2048 tokens route as a group of their own, the JAX block's g = 2);
 # jamba-v0.1-52b's layer 0 (Mamba and a dense FFN; 0.81 B: a cut with an
 # MoE layer adds 2.82 B params a layer and does not fit 4 ranks and a
@@ -3888,7 +4037,7 @@ def phase_mesh_train(shape_rows):
 # the sLSTM loop up to four times a step)
 MOE_SSM_RUNS = {
     "moonshot": (dataclasses.replace(ARCHS["moonshot-v1-16b-a3b"],
-                                     num_layers=2), 2, 2048, TRAIN_REMAT),
+                                     num_layers=1), 2, 2048, TRAIN_REMAT),
     "jamba": (dataclasses.replace(ARCHS["jamba-v0.1-52b"], num_layers=1),
               2, 2048, TRAIN_REMAT),
     "xlstm": (dataclasses.replace(ARCHS["xlstm-1.3b"], num_layers=8), 2,
@@ -3911,15 +4060,15 @@ def _moe_ssm_spec() -> dict:
 
 # phase 18: enc-dec and VLM training on phase 16's (2, 2) mesh of
 # MESH_WORLD ranks against one rank, at full width, bf16, AdamW (TRAIN_OPT)
-# with dots_saveable, MESH_STEPS steps: whisper-medium cut to 4 + 4 of its
-# 24 + 24 layers (0.26 B params), a global batch of 2 of train_4k's rows
+# with dots_saveable, MESH_STEPS steps: whisper-medium cut to 2 + 2 of its
+# 24 + 24 layers (0.18 B params), a global batch of 2 of train_4k's rows
 # (4096 frames, split over "model" as the input spec's "seq_cp" places
 # them, and 448 decoder tokens; its odd vocabulary of 51865 stays whole);
 # llava-next-34b cut to 1 of its 60 layers (1.48 B), 2 x 4096 positions
 # (2880 patch rows and 1216 tokens)
 ENCDEC_VLM_RUNS = {
-    "whisper": (dataclasses.replace(ARCHS["whisper-medium"], num_layers=4,
-                                    num_encoder_layers=4), 2, 4096,
+    "whisper": (dataclasses.replace(ARCHS["whisper-medium"], num_layers=2,
+                                    num_encoder_layers=2), 2, 4096,
                 TRAIN_REMAT),
     "llava": (dataclasses.replace(ARCHS["llava-next-34b"], num_layers=1), 2,
               4096, TRAIN_REMAT),
@@ -4506,32 +4655,26 @@ def _check_moe_ssm_run(name: str, sp: dict, ref_recs, recs) -> None:
             fail(f"{sp['tag']} {name}: {kernel} never launched on some rank")
 
 
-def _phase_mesh_runs(sp: dict):
-    """Phases 17 and 18: each run's one-rank reference (a, b), then every
-    run of ``sp["runs"]`` on ``MESH_WORLD`` ranks sharing the card
+def mesh_runs_job(tmp: str, sp: dict):
+    """Phase 17 or 18 as a ``run_mesh_jobs`` job: each run's one-rank
+    reference (a, b), then every run of ``sp["runs"]`` on the ranks
     (``moe_ssm_rank``); the checks. Returns the launch counts of the
     one-rank runs and of every rank's steps."""
-    import tempfile
     card = _card()
     counts = Counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        refs = {}
-        for name in sp["runs"]:
-            t0 = time.perf_counter()
-            recs, c, _ = moe_ssm_reference(name, tmp, sp)
-            refs[name] = recs
-            counts.update(c)
-            log(f"[{sp['tag']}] {name} one rank took "
-                f"{time.perf_counter() - t0:.1f} s on {card}")
+    refs = {}
+    for name in sp["runs"]:
         t0 = time.perf_counter()
-        out = os.path.join(tmp, "mesh_rank%d.json")
-        spawn_ranks(moe_ssm_rank, MESH_WORLD, sp, tmp, out)
-        recs = []
-        for r in range(MESH_WORLD):
-            with open(out % r) as f:
-                recs.append(json.load(f))
-        log(f"[{sp['tag']}] the runs on {MESH_WORLD} ranks took "
+        recs, c, _ = moe_ssm_reference(name, tmp, sp)
+        refs[name] = recs
+        counts.update(c)
+        log(f"[{sp['tag']}] {name} one rank took "
             f"{time.perf_counter() - t0:.1f} s on {card}")
+    out = os.path.join(tmp, "mesh_rank%d.json")
+    rank_s = yield moe_ssm_rank, (sp, tmp, out)
+    recs = _rank_records(out)
+    log(f"[{sp['tag']}] the runs on {MESH_WORLD} ranks took {rank_s:.1f} s "
+        f"on {card}")
     for name in sp["runs"]:
         _check_moe_ssm_run(name, sp, refs[name], recs)
         for rec in recs:
@@ -4540,13 +4683,15 @@ def _phase_mesh_runs(sp: dict):
 
 
 def phase_mesh_moe_ssm():
-    """Phase 17 (``_phase_mesh_runs`` of ``MOE_SSM_RUNS``)."""
-    return _phase_mesh_runs(_moe_ssm_spec())
+    """Phase 17 (``mesh_runs_job`` of ``MOE_SSM_RUNS``) on ranks of its
+    own."""
+    return run_mesh_jobs(lambda tmp: mesh_runs_job(tmp, _moe_ssm_spec()))
 
 
 def phase_mesh_encdec_vlm():
-    """Phase 18 (``_phase_mesh_runs`` of ``ENCDEC_VLM_RUNS``)."""
-    return _phase_mesh_runs(_encdec_vlm_spec())
+    """Phase 18 (``mesh_runs_job`` of ``ENCDEC_VLM_RUNS``) on ranks of its
+    own."""
+    return run_mesh_jobs(lambda tmp: mesh_runs_job(tmp, _encdec_vlm_spec()))
 
 
 # --------------------------------------------------------------- phase 19
@@ -4716,27 +4861,26 @@ def mesh_serve_reference(sp: dict, tokens) -> tuple:
 
 
 def phase_mesh_serve(shape_rows):
-    """Phase 19: (a) and (b) on ``MESH_WORLD`` ranks sharing the card
+    """Phase 19 on ranks of its own (``mesh_serve_job``)."""
+    return run_mesh_jobs(lambda tmp: mesh_serve_job(tmp, shape_rows))
+
+
+def mesh_serve_job(tmp: str, shape_rows):
+    """Phase 19 as a ``run_mesh_jobs`` job: (a) and (b) on the ranks
     (``mesh_serve_rank``), then one rank teacher-forced with the mesh's
     tokens; the checks, and flash at a rank's prefill shape (a shape row).
     Returns the launch counts of every rank's (a) and (b) and of the
     reference."""
-    import tempfile
     card = _card()
     sp = _serve_mesh_spec()
     cfg = sp["cfg"]
     counts = Counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        out = os.path.join(tmp, "serve_mesh.pt")
-        spawn_ranks(mesh_serve_rank, MESH_WORLD, sp, out)
-        recs = []
-        for r in range(MESH_WORLD):
-            with open(f"{out}.{r}") as f:
-                recs.append(json.load(f))
-        mesh_run = torch.load(out)
-        log(f"[mesh-serve] (a)-(b) on {MESH_WORLD} ranks took "
-            f"{time.perf_counter() - t0:.1f} s on {card}")
+    out = os.path.join(tmp, "serve_mesh.pt")
+    rank_s = yield mesh_serve_rank, (sp, out)
+    recs = _rank_records(out + ".%d")
+    mesh_run = torch.load(out)
+    log(f"[mesh-serve] (a)-(b) on {MESH_WORLD} ranks took {rank_s:.1f} s on "
+        f"{card}")
     t0 = time.perf_counter()
     ref, c, ref_ms = mesh_serve_reference(sp, mesh_run["tokens"])
     counts.update(c)
@@ -5079,31 +5223,31 @@ def head_tp_serve_reference(sp: dict, tokens) -> tuple:
 
 
 def phase_head_tp():
-    """Phase 21: the one-rank train step, the mesh's (a) and (b) on
-    ``MESH_WORLD`` ranks (``head_tp_rank``), then the one-rank serving
-    reference teacher-forced with the mesh's tokens; the checks. Returns
-    the launch counts of every rank's runs and of the references."""
-    import tempfile
+    """Phase 21 on ranks of its own (``head_tp_job``)."""
+    return run_mesh_jobs(head_tp_job)
+
+
+def head_tp_job(tmp: str):
+    """Phase 21 as a ``run_mesh_jobs`` job: the one-rank train step, the
+    mesh's (a) and (b) on the ranks (``head_tp_rank``), then the one-rank
+    serving reference teacher-forced with the mesh's tokens; the checks.
+    Returns the launch counts of every rank's runs and of the
+    references."""
     card = _card()
     sp = _head_tp_spec()
     cfg = sp["cfg"]
     counts = Counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ref_step, c = head_tp_reference(sp, tmp)
-        counts.update(c)
-        log(f"[head-tp] one-rank train step took "
-            f"{time.perf_counter() - t0:.1f} s on {card}")
-        t0 = time.perf_counter()
-        out = os.path.join(tmp, "head_tp.pt")
-        spawn_ranks(head_tp_rank, MESH_WORLD, sp, tmp, out)
-        recs = []
-        for r in range(MESH_WORLD):
-            with open(f"{out}.{r}") as f:
-                recs.append(json.load(f))
-        mesh_run = torch.load(out)
-        log(f"[head-tp] (a)-(b) on {MESH_WORLD} ranks took "
-            f"{time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    ref_step, c = head_tp_reference(sp, tmp)
+    counts.update(c)
+    log(f"[head-tp] one-rank train step took {time.perf_counter() - t0:.1f} "
+        f"s on {card}")
+    out = os.path.join(tmp, "head_tp.pt")
+    rank_s = yield head_tp_rank, (sp, tmp, out)
+    recs = _rank_records(out + ".%d")
+    mesh_run = torch.load(out)
+    log(f"[head-tp] (a)-(b) on {MESH_WORLD} ranks took {rank_s:.1f} s on "
+        f"{card}")
     t0 = time.perf_counter()
     ref, c, ref_ms = head_tp_serve_reference(sp, mesh_run["tokens"])
     counts.update(c)
@@ -5169,6 +5313,15 @@ def phase_head_tp():
     return counts
 
 
+def phase_mesh(shape_rows):
+    """Phases 16-19 and 21 in one spawn of ``MESH_WORLD`` ranks."""
+    return run_mesh_jobs(
+        lambda tmp: mesh_train_job(tmp, shape_rows),
+        lambda tmp: mesh_runs_job(tmp, _moe_ssm_spec()),
+        lambda tmp: mesh_runs_job(tmp, _encdec_vlm_spec()),
+        lambda tmp: mesh_serve_job(tmp, shape_rows), head_tp_job)
+
+
 def _card() -> str:
     if DEVICE != "cuda":
         return "the CPU"
@@ -5184,24 +5337,24 @@ def main() -> None:
     phase_device()
     phase_build()
     checked, shape_rows = phase_kernels()
+    log(f"[t] phases 0-2 took {time.perf_counter() - t0:.1f} s")
     # launches summed over every serving phase's runs, phase 14's two
     # training runs, phase 15's serve CLI and phases 16-19's runs on one
     # rank and on each rank of the mesh (each resets the counts just
     # before it runs and reads them just after)
     launches = Counter()
-    for phase in (phase_serve, phase_remap, phase_xlstm, phase_xlstm_remap,
-                  phase_moonshot, phase_jamba, phase_danube, phase_whisper,
-                  phase_whisper_remap, phase_llava, phase_fleet_import,
-                  phase_fleet_scale):
-        launches.update(phase())
-    launches.update(phase_train(shape_rows))
-    launches.update(phase_distributed())
-    launches.update(phase_mesh_train(shape_rows))
-    launches.update(phase_mesh_moe_ssm())
-    launches.update(phase_mesh_encdec_vlm())
-    launches.update(phase_mesh_serve(shape_rows))
-    launches.update(phase_examples())
-    launches.update(phase_head_tp())
+    for phase, args in (
+            (phase_serve, ()), (phase_remap, ()), (phase_xlstm, ()),
+            (phase_xlstm_remap, ()), (phase_moonshot, ()), (phase_jamba, ()),
+            (phase_danube, ()), (phase_whisper, ()),
+            (phase_whisper_remap, ()), (phase_llava, ()),
+            (phase_fleet_import, ()), (phase_fleet_scale, ()),
+            (phase_train, (shape_rows,)), (phase_distributed, ()),
+            (phase_examples, ()), (phase_mesh, (shape_rows,))):
+        t1 = time.perf_counter()
+        launches.update(phase(*args))
+        log(f"[t] {phase.__name__} took {time.perf_counter() - t1:.1f} s, "
+            f"{time.perf_counter() - t0:.1f} s since the start")
     log(f"[launches] every serving, training and CLI phase: "
         f"{dict(launches)}")
     rows = []

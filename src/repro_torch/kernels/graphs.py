@@ -1,5 +1,6 @@
 """Capturing a step that launches the kernels as one CUDA graph: the
-bookkeeping that the compiled decode step (``serving.decode_graph``) and the
+bookkeeping that the compiled decode step (``serving.decode_graph``), the
+compiled prefill (``serving.prefill_graph``, ``models.slstm_graph``) and the
 compiled training step (``training.train_graph``) share.
 
 The kernels' launch counters are Python increments in their wrappers, so
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,12 +32,25 @@ class GraphStats:
     pool_bytes: int = 0         # reserved by the live graphs' captures
 
 
+def replayable(x: torch.Tensor, mesh=None) -> bool:
+    """Whether work on ``x`` may replay a captured graph: ``x`` lies on a
+    CUDA device, no mesh is in play (the gloo collectives cannot be
+    captured), autograd is off (a replay records no backward) and no
+    capture is running on the current stream (the compiled training step
+    captures the whole forward). Everything else runs eagerly."""
+    return (x.is_cuda and mesh is None and not torch.is_grad_enabled()
+            and not torch.cuda.is_current_stream_capturing())
+
+
 def capture(graph: torch.cuda.CUDAGraph, stream, device, body: Callable,
-            what: str) -> Tuple[object, float, int, Dict[str, int]]:
-    """Capture ``body()`` into ``graph`` on ``stream``. Returns (what
-    ``body`` returned: the graph's outputs, capture ms, the bytes its
-    memory pool reserved, the kernels' launches by name). A failure raises
-    ``RuntimeError`` with ``what`` before the cause."""
+            what: str, pool: Optional[Tuple[int, int]] = None
+            ) -> Tuple[object, float, int, Dict[str, int]]:
+    """Capture ``body()`` into ``graph`` on ``stream`` (into the memory
+    pool ``pool`` that other graphs of one cache share, where given).
+    Returns (what ``body`` returned: the graph's outputs, capture ms, the
+    bytes its capture added to the reserved memory, the kernels' launches
+    by name). A failure raises ``RuntimeError`` with ``what`` before the
+    cause."""
     before = launch_counts()
     t0 = time.perf_counter()
     gc.collect()
@@ -47,7 +61,7 @@ def capture(graph: torch.cuda.CUDAGraph, stream, device, body: Callable,
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
             out = body()
     except Exception as e:
         raise RuntimeError(f"{what}: {e}") from e

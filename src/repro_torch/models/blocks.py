@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.graphs import replayable
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.distributed.collectives import (
     all_gather_dim, all_to_all_dim, copy_to_region, fsdp_gather, gather_over,
@@ -1355,7 +1356,12 @@ class SLSTM:
         the rank runs the cell on its head_dim block of every head (w's and
         b's columns, r's input rows), the recurrent product's partial sums
         reduce-scattered over those axes each step (``_axes``); its final
-        state is the rank's block, ``wo`` row-parallel over head_dim."""
+        state is the rank's block, ``wo`` row-parallel over head_dim.
+
+        ``ctx["slstm_graphs"]`` (an ``SLSTMGraphs``, ``Model.prefill``'s):
+        where ``kernels.graphs.replayable`` holds (CUDA, no mesh, autograd
+        off, no capture running) each chunk replays one captured graph of
+        its ``ck`` steps (``models.slstm_graph``) instead of the loop."""
         b, t, _ = x.shape
         mesh = (ctx or {}).get("mesh")
         p, sp = _gathered(self, p, cfg, mesh)
@@ -1378,12 +1384,17 @@ class SLSTM:
         ck = self.TIME_CHUNK
         while t % ck:
             ck -= 1
-        run = remat(steps, "full")
-        hs = []
-        for c0 in range(0, t, ck):
-            *state, h_c = run(wx[:, c0:c0 + ck], *state)
-            hs.append(h_c)
-        hs = torch.cat(hs, dim=1).to(x.dtype)          # [b,t,h,hd]
+        graphs = (ctx or {}).get("slstm_graphs")
+        if graphs is not None and replayable(wx, mesh):
+            state, hs = graphs.run(self._cell, p, wx, ck)
+        else:
+            run = remat(steps, "full")
+            hs = []
+            for c0 in range(0, t, ck):
+                *state, h_c = run(wx[:, c0:c0 + ck], *state)
+                hs.append(h_c)
+            hs = torch.cat(hs, dim=1)
+        hs = hs.to(x.dtype)                            # [b,t,h,hd]
         out = reduce_from_region(_einsum("bthk,hkd->btd", hs, p["wo"]),
                                  mesh, region)
         return out.to(x.dtype), dict(zip(("c", "n", "h"), state))

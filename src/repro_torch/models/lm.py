@@ -550,37 +550,50 @@ class LM(VocabEnds):
         slot is mid-prefill (see the JAX docstring), so positions and masks
         derive from ``start``; ctx is reset to ``start + S`` on exit.
         Returns (last_logits [V], state)."""
-        cfg = self.cfg
         self._require_attention("prefill_chunk_paged")
-        fetch = fetch or _index_fetch(params)
         x = self.embed(params, tokens[None, :], prefix_embeds)   # [1, S, D]
         s = x.shape[1]
         dev = x.device
         pos = start + torch.arange(s, dtype=torch.int32, device=dev)
-        page = state["pool_k"].shape[2]
-        pt_row = state["page_table"][slot]                    # [N]
-        pg = pt_row[(pos // page).long()].long()              # [S]
-        off = (pos % page).long()
         q_start = torch.full((1,), start, dtype=torch.int32, device=dev)
         ctx_end = torch.full((1,), start + s, dtype=torch.int32, device=dev)
+        logits = self.prefill_chunk_stack(
+            params, state["pool_k"], state["pool_v"], state["page_table"][slot],
+            x, pos, q_start, ctx_end, fetch)
+        ctx = state["ctx"].clone()
+        ctx[slot] = start + s
+        return logits[0], dict(state, ctx=ctx)
+
+    def prefill_chunk_stack(self, params, pool_k, pool_v, pt_row, x, pos,
+                            q_start, ctx_end, fetch=None):
+        """The layer stack of one prefill chunk x [1, S, D] at positions
+        ``pos`` [S] (int32) of the sequence whose page-table row is
+        ``pt_row`` [N]: each layer's K/V scattered into ``pool_k`` /
+        ``pool_v`` [R, P, page, Hkv, hd] in place, then attended by the
+        paged prefill kernel from ``q_start`` to ``ctx_end`` ([1] int32
+        each). Returns the last row's logits [1, V]. Every position comes
+        from a device tensor, so a captured chunk (``serving.prefill_graph``)
+        replays at any start."""
+        cfg = self.cfg
+        fetch = fetch or _index_fetch(params)
+        page = pool_k.shape[2]
+        pg = pt_row[(pos // page).long()].long()              # [S]
+        off = (pos % page).long()
         for r in range(self.repeats):
             (p,) = fetch(r)
-            pool_k, pool_v = state["pool_k"][r], state["pool_v"][r]
+            pk, pv = pool_k[r], pool_v[r]
             h = rms_norm(x, p["norm1"], cfg.norm_eps)
             q, k_new, v_new = _ATTN._qkv(p["mixer"], h, cfg)     # [1,S,H,hd]
             q = rope(q, pos[None], cfg.rope_theta)
             k_new = rope(k_new, pos[None], cfg.rope_theta)
-            pool_k[pg, off] = k_new[0]
-            pool_v[pg, off] = v_new[0]
+            pk[pg, off] = k_new[0]
+            pv[pg, off] = v_new[0]
             out = paged_prefill_attention(
-                q, pool_k, pool_v, pt_row[None].contiguous(), q_start,
-                ctx_end, window=cfg.sliding_window)
+                q, pk, pv, pt_row[None].contiguous(), q_start, ctx_end,
+                window=cfg.sliding_window)
             y = _einsum("bshk,hkd->bsd", out, p["mixer"]["wo"]).to(x.dtype)
             x = self._ffn(self.pattern[0], p, x + y)
-        logits = self.logits_last(params, x[:, -1])
-        ctx = state["ctx"].clone()
-        ctx[slot] = start + s
-        return logits[0], dict(state, ctx=ctx)
+        return self.logits_last(params, x[:, -1])
 
     def paged_state_from_prefill(self, caches, lengths, page_tables,
                                  num_pages: int, page_size: int,
@@ -615,7 +628,7 @@ class LM(VocabEnds):
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, params, tokens, max_context: int, prefix_embeds=None,
-                lengths=None, global_batch: int = 0):
+                lengths=None, global_batch: int = 0, slstm_graphs=None):
         """tokens [B, St] (after ``prefix_embeds`` [B, P, D] where given) ->
         (last_logits [B, V], dense decode state). ``lengths`` [B]: each
         row's real length of the S = P + St rows (default S); the logits
@@ -625,7 +638,11 @@ class LM(VocabEnds):
         params and inputs are the rank's blocks (the rows of tokens, prefix
         and lengths), the stack runs as ``fwd_seq`` does on a mesh, without
         autograd, the logits are the rank's rows (every vocabulary entry)
-        and the state the rank's block (``state_from_prefill``)."""
+        and the state the rank's block (``state_from_prefill``).
+
+        ``slstm_graphs``: an ``SLSTMGraphs`` whose captured chunks the
+        sLSTM layers replay on one CUDA device (``SLSTM.fwd_seq``); None
+        runs their eager loop."""
         mesh = get_mesh()
         data = _require_batch(mesh, global_batch)
         b = tokens.shape[0]
@@ -634,7 +651,8 @@ class LM(VocabEnds):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         x, _aux, caches = self.fwd_seq(
-            params, x, {"positions": positions, "mesh": mesh, "data": data},
+            params, x, {"positions": positions, "mesh": mesh, "data": data,
+                        "slstm_graphs": slstm_graphs},
             collect_cache=True)
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)

@@ -16,6 +16,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
+from repro_torch.models.slstm_graph import SLSTMGraphs
 
 WHISPER_DECODER_LEN = 448   # decoder-side target length for train/prefill
 
@@ -26,6 +27,8 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.impl = EncDec(cfg) if cfg.is_encoder_decoder else LM(cfg)
+        # the captured sLSTM time chunks that ``prefill`` replays
+        self.slstm_graphs = SLSTMGraphs()
 
     def specs(self):
         return self.impl.specs()
@@ -94,7 +97,8 @@ class Model:
         return loss + 0.01 * aux
 
     # ---------------------------------------------------------------- serving
-    def prefill(self, params, batch, max_context: int, shape=None):
+    def prefill(self, params, batch, max_context: int, shape=None,
+                graphs: bool = True):
         """``batch``: "tokens" [B, S]; an enc-dec config's "frames" [B,
         S_enc, D]; a VLM's optional "patch_embeds" [B, P, D] and
         "lengths" [B]. Returns (last logits [B, V], the decode state).
@@ -104,7 +108,11 @@ class Model:
         ``shape`` is the cell's ``ShapeConfig`` (its global batch; an
         enc-dec config's frames split their sequence as its input spec
         says), and the state is the rank's block of
-        ``decode_state_shardings``."""
+        ``decode_state_shardings``.
+
+        ``graphs``: on one CUDA device, with no mesh, the sLSTM layers
+        replay the model's captured time chunks (``slstm_graphs``); False
+        runs their eager loop, as every other case does."""
         mesh = get_mesh()
         b = 0
         if mesh is not None:
@@ -121,7 +129,9 @@ class Model:
         return self.impl.prefill(params, batch["tokens"], max_context,
                                  prefix_embeds=batch.get("patch_embeds"),
                                  lengths=batch.get("lengths"),
-                                 global_batch=b)
+                                 global_batch=b,
+                                 slstm_graphs=self.slstm_graphs if graphs
+                                 else None)
 
     def decode_step(self, params, state, tokens, max_context: int,
                     fetch=None, global_batch: int = 0, **kwargs):

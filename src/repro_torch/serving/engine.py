@@ -28,7 +28,13 @@ reference's (resident, cycle, paged) plus the storage a graph bakes in),
 with the streaming fetch of cycling layers inside the graph and the argmax
 too, so a step reads back only its token ids. ``decode_graphs=False``
 decodes eagerly instead, as on the CPU (the plain version every
-differential test runs). Prefill stays eager, as in the reference. The
+differential test runs). The chunked paged prefill runs compiled too, as
+the reference's ``prefill_chunk_paged`` does: each chunk length's layer
+loop is captured once per tenant and replayed (``serving/prefill_graph.py``;
+the key holds the chunk length, the page-table width and the pools' and
+parameters' storage); a dense prefill replays its sLSTM time chunks
+(``models/slstm_graph.py``); ``prefill_graphs=False`` runs prefill eagerly.
+The monolithic paged prefill stays eager, as in the reference. The
 engine keeps host mirrors of each paged tenant's page table and write
 cursors, so no step reads the table back from the device.
 
@@ -67,6 +73,7 @@ from repro_torch.core import (
 from repro_torch.models import build_model
 from repro_torch.models.common import dtype_of, tree_bytes, tree_leaves
 from repro_torch.serving.decode_graph import DecodeGraphs, decode_fn
+from repro_torch.serving.prefill_graph import PrefillGraphs
 from repro_torch.serving.hw import HardwareSpec, TPU_V5E
 from repro_torch.serving.perf_model import PerfModel
 from repro_torch.serving.request import (
@@ -158,7 +165,8 @@ class Tenant:
     """Runtime state for one hosted model."""
 
     def __init__(self, name: str, tc: TenantConfig, hw: HardwareSpec,
-                 device, decode_graphs: bool = False):
+                 device, decode_graphs: bool = False,
+                 prefill_graphs: bool = False):
         self.name = name
         self.cfg = tc.cfg
         self.model = build_model(tc.cfg)
@@ -195,9 +203,15 @@ class Tenant:
         # host mirrors of a paged tenant's page table and write cursors
         self.pt_host: Optional[np.ndarray] = None
         self.ctx_host: Optional[np.ndarray] = None
+        cuda = self.device.type == "cuda"
         # the compiled decode step's cache (CUDA only)
         self.graphs = DecodeGraphs(self.device) \
-            if decode_graphs and self.device.type == "cuda" else None
+            if decode_graphs and cuda else None
+        # the compiled prefill (CUDA only): a paged tenant's chunk graphs;
+        # a dense prefill replays the sLSTM chunks of the tenant's model
+        self.compiled_prefill = prefill_graphs and cuda
+        self.prefill_graphs = PrefillGraphs(self.device) \
+            if self.compiled_prefill and tc.paged else None
 
     def init_paged_state(self, total_pages: int, page_size: int):
         """Pool covers every allocator page id + one scratch page (used by
@@ -304,6 +318,7 @@ class ServingEngine:
         device="cuda",
         keep_prefill_logits: bool = False,
         decode_graphs: bool = True,
+        prefill_graphs: bool = True,
     ):
         """``prefill_chunk_tokens``: > 0 enables token-budget chunked
         prefill for paged tenants — an admitted prompt is computed in
@@ -323,8 +338,11 @@ class ServingEngine:
         ``prefill_logits[rid]``, so runs can be compared beyond argmax.
         ``decode_graphs``: on a CUDA device, decode through captured CUDA
         graphs (the default); False decodes eagerly, to hold the graphs
-        against the eager step. No effect on the CPU, which decodes
-        eagerly."""
+        against the eager step. ``prefill_graphs``: on a CUDA device, run
+        each chunk of the chunked paged prefill through a captured CUDA
+        graph per chunk length, and a dense prefill's sLSTM time chunks
+        through their captured graph (the default); False prefills
+        eagerly. Neither has an effect on the CPU, which runs eagerly."""
         assert mode in ("mirage", "vllm", "swap")
         self.mode = mode
         self.hw = hw
@@ -341,7 +359,8 @@ class ServingEngine:
         self.device = torch.device(device)
         self.prefill_logits: Optional[Dict[str, torch.Tensor]] = \
             {} if keep_prefill_logits else None
-        self.tenants = {n: Tenant(n, tc, hw, self.device, decode_graphs)
+        self.tenants = {n: Tenant(n, tc, hw, self.device, decode_graphs,
+                                  prefill_graphs)
                         for n, tc in tenants.items()}
         self.allocator = PagedKVAllocator(base_kv_pages, page_size)
         self.store = MetadataStore(MemoryInfo(
@@ -860,7 +879,8 @@ class ServingEngine:
         if t.paged:
             logits = self._prefill_paged(t, r, slot, batch)
         else:
-            logits, state1 = t.model.prefill(t.params, batch, t.max_context)
+            logits, state1 = t.model.prefill(t.params, batch, t.max_context,
+                                             graphs=t.compiled_prefill)
         self._keep_logits(r, logits[0])
         tok = int(torch.argmax(logits[0]))
         t.slots[slot] = r
@@ -942,18 +962,23 @@ class ServingEngine:
                         r.prompt_len - r.prefill_pos)
             if chunk <= 0:
                 continue
-            tokens = torch.from_numpy(np.asarray(
-                r.prompt[r.prefill_pos:r.prefill_pos + chunk],
-                np.int64)).to(t.device)
-            logits, t.state = t.model.impl.prefill_chunk_paged(
-                t.params, t.state, r.slot, tokens, r.prefill_pos)
+            tokens = np.asarray(
+                r.prompt[r.prefill_pos:r.prefill_pos + chunk], np.int64)
+            choice = None
+            if t.prefill_graphs is not None:
+                logits, choice = t.prefill_graphs.chunk(
+                    t, r.slot, tokens, r.prefill_pos)
+            else:
+                logits, t.state = t.model.impl.prefill_chunk_paged(
+                    t.params, t.state, r.slot,
+                    torch.from_numpy(tokens).to(t.device), r.prefill_pos)
             r.prefill_pos += chunk
             t.ctx_host[r.slot] = r.prefill_pos
             spent += chunk
             if r.prefill_pos >= r.prompt_len:
                 r.prefilling = False
                 self._keep_logits(r, logits)
-                tok = int(torch.argmax(logits))
+                tok = int(torch.argmax(logits) if choice is None else choice)
                 r.generated.append(tok)
                 r.t_first_token = float(self.step_idx)
                 r.token_times.append(float(self.step_idx))
@@ -1159,12 +1184,25 @@ class ServingEngine:
         m.unfinished = self.inflight()
         return m
 
-    def graph_stats(self) -> Dict[str, Dict[str, Any]]:
-        """Per-tenant decode-graph counters: captures, replays, graphs
-        dropped, capture ms and the bytes the live graphs' captures
-        reserved (empty where the engine decodes eagerly)."""
-        return {n: dataclasses.asdict(t.graphs.stats)
-                for n, t in self.tenants.items() if t.graphs is not None}
+    def graph_stats(self, kind: str = "decode") -> Dict[str, Dict[str, Any]]:
+        """Per-tenant graph counters of ``kind``: "decode" (the decode
+        graphs) or "prefill" (the chunked prefill's graphs and the sLSTM
+        time chunks' together): captures, replays, graphs dropped, capture
+        ms and the bytes the live graphs' captures reserved (empty where
+        the engine runs that kind eagerly)."""
+        if kind == "decode":
+            return {n: dataclasses.asdict(t.graphs.stats)
+                    for n, t in self.tenants.items() if t.graphs is not None}
+        if kind != "prefill":
+            raise ValueError(f"graph kind {kind!r}: decode or prefill")
+        out = {}
+        for n, t in self.tenants.items():
+            if t.compiled_prefill:
+                parts = [t.model.slstm_graphs.stats] + (
+                    [t.prefill_graphs.stats] if t.prefill_graphs else [])
+                out[n] = {k: sum(getattr(p, k) for p in parts)
+                          for k in dataclasses.asdict(parts[0])}
+        return out
 
     def tier_metrics(self) -> Dict[str, ServingMetrics]:
         """Tail metrics per SLO tier (engine-step clock)."""

@@ -63,6 +63,68 @@ def test_xlstm_serve_and_remap_phases_run(on_cpu, capsys):
     assert "generated tokens identical to the ample-budget run" in out
 
 
+def test_serve_phase_holds_the_chunked_prefill_graphs_to_eager(on_cpu,
+                                                               capsys):
+    """Phase 3's chunked run again with both switches off: both runs'
+    admit+prefill seconds, launches and prefill graph counters logged, the
+    kept prefill logits bitwise (the CPU prefills eagerly either way)."""
+    chip_smoke.phase_serve(on_cpu)
+    out = capsys.readouterr().out
+    assert "[serve-chunked] graph run: admit+prefill" in out
+    assert "[serve-chunked] eager run: admit+prefill" in out
+    assert "prefill graphs 0 captures" in out
+    assert "launches, prefill logits of 8 requests bitwise" in out
+
+
+def test_xlstm_phase_holds_the_prefill_graphs_to_eager(on_cpu, capsys):
+    cfg = dataclasses.replace(scaled_config(ARCHS["xlstm-1.3b"],
+                                            num_layers=16), dtype="bfloat16")
+    chip_smoke.phase_xlstm(cfg)
+    out = capsys.readouterr().out
+    assert "[xlstm] graph run: admit+prefill" in out
+    assert "[xlstm] eager run: admit+prefill" in out
+    assert "launches, prefill logits of 8 requests bitwise" in out
+
+
+def _one_logit_an_ulp_up(run) -> None:
+    logits = run["logits"]
+    a = logits[sorted(logits)[0]]
+    a[0] = torch.nextafter(a[0], a[0] + 1)
+
+
+def test_serve_phase_sees_a_chunked_prefill_off_by_an_ulp(on_cpu,
+                                                         monkeypatch):
+    """A chunked graph run whose first request's kept logits are one f32
+    ulp off the eager run's fails phase 3."""
+    serve_once = chip_smoke.serve_once
+
+    def off(cfg, params, chunk, *args, **kw):
+        out = serve_once(cfg, params, chunk, *args, **kw)
+        if chunk and kw.get("prefill_graphs", True):
+            _one_logit_an_ulp_up(out[4])
+        return out
+    monkeypatch.setattr(chip_smoke, "serve_once", off)
+    with pytest.raises(SystemExit, match="serve-chunked: prefill logits of "
+                       "the graph run differ from the eager run's in 1 of 8"):
+        chip_smoke.phase_serve(on_cpu)
+
+
+def test_xlstm_phase_sees_prefill_logits_off_by_an_ulp(on_cpu, monkeypatch):
+    serve_dense = chip_smoke._serve_dense
+
+    def off(cfg, params, tag, *args, **kw):
+        eng, counts, run = serve_dense(cfg, params, tag, *args, **kw)
+        if tag == "xlstm":
+            _one_logit_an_ulp_up(run)
+        return eng, counts, run
+    monkeypatch.setattr(chip_smoke, "_serve_dense", off)
+    cfg = dataclasses.replace(scaled_config(ARCHS["xlstm-1.3b"],
+                                            num_layers=16), dtype="bfloat16")
+    with pytest.raises(SystemExit, match="xlstm: prefill logits of the graph "
+                       "run differ from the eager run's in 1 of 8"):
+        chip_smoke.phase_xlstm(cfg)
+
+
 def _bf16(arch, layers):
     return dataclasses.replace(scaled_config(ARCHS[arch], num_layers=layers),
                                dtype="bfloat16")
@@ -691,18 +753,18 @@ def test_mesh_train_phase_sees_an_update_that_does_nothing(mesh_on_cpu,
 
 
 def test_mesh_train_phase_is_llama3_8b_cut_in_depth():
-    """Phase 16 trains llama3-8b at full width, 4 of its 32 layers (1.92 B
+    """Phase 16 trains llama3-8b at full width, 2 of its 32 layers (1.49 B
     params), on a (2, 2) mesh: every rank takes 16 query heads and 4 KV
     heads, the flash shape row 3i."""
     cfg = chip_smoke.MESH_CFG
     full = ARCHS["llama3-8b"]
     assert dataclasses.replace(cfg, num_layers=full.num_layers) == full
-    assert cfg.num_layers == 4
+    assert cfg.num_layers == 2
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
     n = sum(int(np.prod(s.shape))
             for s in tree_leaves(build_model(cfg).specs()))
-    assert round(n / 1e9, 2) == 1.92
+    assert round(n / 1e9, 2) == 1.49
     assert chip_smoke.MESH_LAYOUT == (2, 2) and chip_smoke.MESH_WORLD == 4
     assert (cfg.num_heads // 2, cfg.num_kv_heads // 2) == (16, 4)
     assert (chip_smoke.MESH_BATCH, chip_smoke.MESH_SEQ) == (2, 2048)
@@ -801,13 +863,13 @@ def test_moe_ssm_phase_sees_a_fault_in_one_heads_gradient(moe_ssm_on_cpu,
 
 
 def test_moe_ssm_phase_runs_are_cut_in_depth_only():
-    """Phase 17 runs moonshot-v1-16b-a3b (2 of 48 layers, 1.81 B params),
+    """Phase 17 runs moonshot-v1-16b-a3b (1 of 48 layers, 1.24 B params),
     jamba-v0.1-52b's layer 0 (Mamba and a dense FFN, 0.81 B) and
     xlstm-1.3b (8 of 48 layers, 0.35 B) at full width on phase 16's (2, 2)
     mesh: 32 experts, 64 Mamba heads and 2 xLSTM heads a rank."""
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
-    want = {"moonshot": ("moonshot-v1-16b-a3b", 2, 1.81, 2048),
+    want = {"moonshot": ("moonshot-v1-16b-a3b", 1, 1.24, 2048),
             "jamba": ("jamba-v0.1-52b", 1, 0.81, 2048),
             "xlstm": ("xlstm-1.3b", 8, 0.35, 512)}
     assert set(chip_smoke.MOE_SSM_RUNS) == set(want)
@@ -932,7 +994,7 @@ def test_encdec_vlm_phase_sees_a_fault_on_the_cross_attention_path(
 
 
 def test_encdec_vlm_phase_runs_are_cut_in_depth_only():
-    """Phase 18 runs whisper-medium (4 + 4 of 24 + 24 layers, 0.26 B
+    """Phase 18 runs whisper-medium (2 + 2 of 24 + 24 layers, 0.18 B
     params) and llava-next-34b (1 of 60 layers, 1.48 B) at full width on
     phase 16's (2, 2) mesh, 2 rows of train_4k's 4096 positions each: 8
     of whisper's heads a rank, 28 of llava's query heads and 4 of its KV
@@ -941,7 +1003,7 @@ def test_encdec_vlm_phase_runs_are_cut_in_depth_only():
     from repro_torch.distributed.sharding import MeshLayout
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
-    want = {"whisper": ("whisper-medium", 4, 4, 0.26),
+    want = {"whisper": ("whisper-medium", 2, 2, 0.18),
             "llava": ("llava-next-34b", 1, 0, 1.48)}
     assert set(chip_smoke.ENCDEC_VLM_RUNS) == set(want)
     layout = MeshLayout(("data", "model"), chip_smoke.MESH_LAYOUT)
@@ -1011,6 +1073,27 @@ def test_mesh_serve_phase_sees_a_wrong_decode(mesh_serve_on_cpu,
                         lambda sp, tokens: real(sp, tokens[1:] + tokens[:1]))
     with pytest.raises(SystemExit, match="logits off one rank"):
         chip_smoke.phase_mesh_serve([])
+
+
+def test_mesh_jobs_share_one_spawn(mesh_serve_on_cpu, monkeypatch, capsys):
+    """The mesh phases run their rank work in one spawn: two phase-19 jobs
+    in turn on the same 4 gloo ranks each pass their checks, each with
+    rank 0's seconds of its own work."""
+    spawned = []
+    real = chip_smoke.spawn_ranks
+
+    def spawn(fn, *args):
+        spawned.append(fn)
+        real(fn, *args)
+    monkeypatch.setattr(chip_smoke, "spawn_ranks", spawn)
+    counts = chip_smoke.run_mesh_jobs(
+        *[lambda tmp: chip_smoke.mesh_serve_job(tmp, [])] * 2)
+    assert spawned == [chip_smoke.run_rank_jobs]
+    assert counts["flash_attention"] == 0          # the plain versions
+    out = capsys.readouterr().out
+    assert out.count("[mesh-ranks] 2 phase(s) on 4 ranks") == 1
+    assert out.count("[mesh-serve] (a)-(b) on 4 ranks took") == 2
+    assert out.count("equal to one rank's 34 of 34") == 2
 
 
 def test_mesh_serve_phase_is_llama3_8b_cut_in_depth():

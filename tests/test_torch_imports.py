@@ -28,7 +28,9 @@ FIRST = ["repro_torch.kernels", "repro_torch.models", "repro_torch.core",
          "repro_torch.serving.perf_model", "repro_torch.launch",
          "repro_torch.launch.mesh", "repro_torch.launch.serve",
          "repro_torch.launch.train", "repro_torch.launch.dryrun",
-         "repro_torch.training.train_graph", "chip_smoke"]
+         "repro_torch.training.train_graph",
+         "repro_torch.serving.prefill_graph",
+         "repro_torch.models.slstm_graph", "chip_smoke"]
 TWINS = sorted(p.stem for p in (ROOT / "examples").glob("*_torch.py"))
 
 PROBE = """
